@@ -1,0 +1,114 @@
+#!/usr/bin/env python3
+"""Where a k=17 ECDSA proof of the PyTorch/CUDA port spends its time.
+
+    python3 scripts/profile_torch_prove.py [--proofs 5] [--out build/profile_prove.txt]
+
+Keys the default circuit, proves once to warm up, times --proofs more
+proofs (median and quartiles of the wall time, each ending in a device
+synchronise), then proves once more under torch.profiler (CPU and CUDA
+activities). From the profiled proof it prints the summed time of the
+kernels on the device, its share of the proof's wall time (the device's
+busy share; the rest is idle), the launch count, the per-phase spans and
+the kernels with the most device time, and writes the operator table to
+--out. Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+
+def _det_rng(seed: bytes):
+    ctr = [0]
+
+    def rng(nbytes: int) -> bytes:
+        ctr[0] += 1
+        return hashlib.blake2b(seed + ctr[0].to_bytes(8, "little"),
+                               digest_size=nbytes).digest()
+
+    return rng
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="build/profile_prove.txt")
+    ap.add_argument("--proofs", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from webauthn_halo2_tpu_torch import api
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams, ECDSAInputs
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+    from webauthn_halo2_tpu_torch.plonk import prover as PR
+
+    dev = torch.device("cuda")
+    K.build_all()
+    params = CircuitParams()
+    api.proving_key(params, device=dev)
+    inp = ECDSAInputs.dummy()
+
+    def le(v):
+        return int(v).to_bytes(32, "little")
+
+    args_ = (le(inp.r), le(inp.s), le(inp.pk[0]), le(inp.pk[1]), le(inp.msghash))
+    api.generate_proof(*args_, params=params, device=dev, rng=_det_rng(b"warm"))
+    walls = []
+    for i in range(args.proofs):
+        t0 = time.time()
+        api.generate_proof(*args_, params=params, device=dev,
+                           rng=_det_rng(b"run%d" % i))
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    q = statistics.quantiles(walls, n=4) if len(walls) > 1 else walls * 3
+
+    for d in (M.LAUNCHES, N.LAUNCHES):
+        for key in d:
+            d[key] = 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        api.generate_proof(*args_, params=params, device=dev, rng=_det_rng(b"prof"))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+    print(json.dumps({
+        "card": torch.cuda.get_device_name(0),
+        "prove_wall_s_runs": walls,
+        "prove_wall_s_median": statistics.median(walls),
+        "prove_wall_s_quartiles": [q[0], q[2]],
+        "profiled_prove_wall_s": wall,
+        "device_kernel_s": device_us / 1e6,
+        "device_busy_share": device_us / 1e6 / wall,
+        "kernel_launches": sum(e.count for e in kernels),
+        "port_kernel_launches": {**M.LAUNCHES, **N.LAUNCHES},
+        "spans_s": PR.LAST_SPANS,
+        "top_kernels_by_device_time": [
+            {"name": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
+             "count": e.count} for e in kernels[:12]],
+    }, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Build and bind the port's CUDA kernels (csrc/*.cu) with nvcc and ctypes.
+
+Each source is compiled on its own into a shared library with a plain C
+interface (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`), all
+sources at once in parallel, into `build/kernels/` at the repository root.
+A library's file name carries a digest of its sources, so an edited source
+is rebuilt and an unchanged one is loaded as it is. Nothing is built or
+loaded when this module is imported: the first launch builds.
+
+Every C entry returns `cudaGetLastError()`; `check` raises on anything but 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
+SOURCES = ("montmul", "ntt")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_I = ctypes.c_int
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+_U32 = ctypes.c_uint32
+_SIGNATURES = {
+    "wh2_montmul": [_P, _LL, _I, _P, _LL, _I, _P, _LL, _U32P, _U32, _P],
+    "wh2_ntt_stage_a": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
+    "wh2_ntt_stage_b": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
+}
+
+
+class _Libraries:
+    """The loaded libraries of one process (built on first use)."""
+
+    def __init__(self):
+        self.libs: dict[str, ctypes.CDLL] = {}
+
+
+_STATE = _Libraries()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _so_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in (CSRC / "field.cuh", CSRC / f"{name}.cu"):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every missing library (one nvcc per source, all started
+    together) and load them all. Returns the seconds spent."""
+    if len(_STATE.libs) == len(SOURCES):
+        return 0.0
+    t0 = time.time()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in SOURCES:
+        so = _so_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        log = open(so.with_suffix(".log"), "w")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((name, so, tmp, log,
+                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    errors = []
+    for name, so, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            errors.append(f"{name}: nvcc exit {rc}\n"
+                          + so.with_suffix(".log").read_text()[-4000:])
+        else:
+            os.replace(tmp, so)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    for name in SOURCES:
+        lib = ctypes.CDLL(str(_so_path(name)))
+        for fn, argtypes in _SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+        _STATE.libs[name] = lib
+    return time.time() - t0
+
+
+def lib(name: str) -> ctypes.CDLL:
+    if name not in _STATE.libs:
+        build_all()
+    return _STATE.libs[name]
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def modulus_words(spec) -> ctypes.Array:
+    """The modulus of a FieldSpec as a host uint32[8] for a C entry."""
+    return (ctypes.c_uint32 * 8)(*[int(v) & 0xFFFFFFFF for v in spec.p_words])
