@@ -3,19 +3,26 @@
 
     python3 chip_smoke.py
 
-Phases, one line each:
-  1. build the CUDA kernels (webauthn_halo2_tpu_torch/csrc, nvcc, sm_90a);
+Phases, one or more lines each:
+  1. build the CUDA kernels (webauthn_halo2_tpu_torch/csrc, nvcc, sm_90a),
+     one nvcc per source, all started together;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path, with exact equality of the words;
-  3. keygen of the ECDSA-P256 circuit at the default CircuitParams (k=17);
-  4. api.generate_proof on a fixed signature with a deterministic rng;
-  5. api.verify accepts it and rejects a tampered copy; the port's verifier
+     shapes of the main path, with exact equality of the words: montmul,
+     NTT stages A and B, and the v3 MSM kernels (interior, scan, combine) at
+     n = 2^17, c = 13, 20 windows x 9 rows, plus small degenerate MSMs that
+     also meet the host oracle;
+  3. a full k=17 MSM batch through the v3 pipeline equals the serial
+     Pippenger on the card and the host oracle (sum k_i tau^i) G;
+  4. keygen of the ECDSA-P256 circuit at the default CircuitParams (k=17);
+  5. api.generate_proof on a fixed signature with a deterministic rng, every
+     commitment through the v3 pipeline;
+  6. api.verify accepts it and rejects a tampered copy; the port's verifier
      accepts results/proof_shplonk_k17.hex (made by the JAX package);
-  6. every kernel launched during phases 3-5; a `kernels` JSON line with
-     launches, times, bounds and the plain versions' times.
-The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
-and prints no such line. Imports nothing of JAX and nothing of the JAX
-package.
+  7. the same proof with the serial Pippenger as the commit engine
+     (plonk/keygen.MSM_ENGINE) is byte-identical;
+  8. every kernel launched during phases 4-6 and the serial bucket sum did
+     not; a `kernels` JSON line with launches, times, bounds and the plain
+     versions' times.
 """
 from __future__ import annotations
 
@@ -162,6 +169,174 @@ def phase_kernels(dev, gen):
     return rows
 
 
+def _pt_err(a, b) -> int:
+    return max(_max_abs_err(x, y) for x, y in zip(a, b))
+
+
+def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False):
+    """The v3 pipeline's three kernels, each against its plain version on
+    the same inputs (exact words: both add in the same order). Returns a
+    row per kernel, the buckets after the scatter, and the window sums."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    _, B, n = scalars.shape
+    nb = 1 << c
+    digits = MS.scalar_digits(M.from_mont(FR_SPEC, scalars), c)
+    nwin = digits.shape[0]
+    R = nwin * B
+    sdig, order = MF.sorted_stream(digits.reshape(R, n), lanes)
+    S = n // lanes
+    px, py = pts.x.contiguous(), pts.y.contiguous()
+    args = (curve, px, py, sdig, order, nb)
+    got = MF.interior_cuda(*args)
+    want = MF.interior_plain(*args)
+    torch.cuda.synchronize()
+    errs = {"msm_interior": max(_pt_err(got[0], want[0]), _pt_err(got[1], want[1]),
+                                _max_abs_err(got[2], want[2]))}
+    buckets, bnd, seg = got
+    merged = MF.scan_cuda(curve, bnd, seg)
+    errs["msm_scan"] = _pt_err(merged, MF.scan_plain(curve, bnd, seg))
+    MF.scatter_tails(buckets, merged, seg)
+    wsums = MF.combine_cuda(curve, buckets)
+    errs["msm_combine"] = _pt_err(wsums, MF.combine_plain(curve, buckets))
+    torch.cuda.synchronize()
+    rows = {k: dict(err=v) for k, v in errs.items()}
+    if not timed:
+        return rows, buckets, wsums
+    # The least work each function needs on this run's data, not what the
+    # kernels happen to do. Interior: a madd where a step continues its run.
+    madds = int((sdig[:, 1:] == sdig[:, :-1]).sum().item())
+    # Scan: a segmented inclusive scan needs one add per fragment beyond
+    # its segment's first.
+    m2 = seg.shape[1]
+    segments = R + int((seg[:, 1:] != seg[:, :-1]).sum().item())
+    scan_adds = R * m2 - segments
+    # Combine: sum_b b B_b by running sums, per row up to its top non-empty
+    # bucket t: S_b = S_{b+1} + B_b (an add per non-empty bucket in 1..t
+    # beyond the first) and sum_{b=1..t} S_b (t - 1 adds); no doublings.
+    filled = (buckets.z != 0).any(dim=0)
+    filled[:, 0] = False
+    top = (filled * torch.arange(nb, device=filled.device)).max(dim=-1).values
+    comb_adds = int(((filled.sum(dim=-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum().item())
+    G, m = MF._combine_shape(nb)
+    pt_bytes = 3 * ELEM_BYTES
+    shape = f"n=2^{n.bit_length() - 1}, c={c}, R={R} ({nwin}x{B}), K={lanes}, S={S}"
+    rows["msm_interior"].update(
+        shape=shape,
+        ms=_events_ms(lambda: MF.interior_cuda(*args), 5),
+        plain_ms=_events_ms(lambda: MF.interior_plain(*args), 1),
+        bytes=2 * ELEM_BYTES * n + 8 * R * n + pt_bytes * R * (nb + 2 * lanes) + 8 * R * lanes,
+        ops=11 * IMAD_PER_MONTMUL * madds)
+    rows["msm_scan"].update(
+        shape=f"R={R}, {m2} fragments, {segments} segments",
+        ms=_events_ms(lambda: MF.scan_cuda(curve, bnd, seg), 10),
+        plain_ms=_events_ms(lambda: MF.scan_plain(curve, bnd, seg), 1),
+        bytes=2 * pt_bytes * R * m2 + 4 * R * m2,
+        ops=16 * IMAD_PER_MONTMUL * scan_adds)
+    rows["msm_combine"].update(
+        shape=f"R={R}, nb={nb}, m={m}, G={G}",
+        ms=_events_ms(lambda: MF.combine_cuda(curve, buckets), 10),
+        plain_ms=_events_ms(lambda: MF.combine_plain(curve, buckets), 1),
+        bytes=pt_bytes * R * (nb + 1),
+        ops=16 * IMAD_PER_MONTMUL * comb_adds)
+    return rows, buckets, wsums
+
+
+def _tau() -> int:
+    """tau of the committed dev SRS (plonk/srs: seed b"dev")."""
+    from webauthn_halo2_tpu_torch.fields.constants import BN254_FR
+
+    h = hashlib.blake2b(b"webauthn-halo2-tpu/dev-srs/dev", digest_size=64)
+    return int.from_bytes(h.digest(), "little") % BN254_FR
+
+
+def _oracle(ks: list) -> tuple:
+    """sum_i k_i [tau^i] G = (sum_i k_i tau^i) G on the host."""
+    from webauthn_halo2_tpu_torch.fields.constants import BN254_FR
+    from webauthn_halo2_tpu_torch.fields.ref_curve import BN254_G1_CURVE as G
+
+    tau, s, t = _tau(), 0, 1
+    for k in ks:
+        s = (s + k * t) % BN254_FR
+        t = t * tau % BN254_FR
+    return G.mul(s, G.g)
+
+
+def phase_msm_kernels(dev, gen, srs, batch: int):
+    """Phase 2, the v3 MSM kernels: at the main path's shapes (the SRS's
+    n = 2^17 Lagrange bases, c = 13, 20 windows x `batch` rows, random
+    scalars), then small degenerate cases, each also against the host
+    oracle."""
+    from webauthn_halo2_tpu_torch.fields.constants import BN254_FR
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    curve = E.BN254_CURVE
+    n = srs.n
+    c = MS._default_c(n)
+    scal = _rand_words(FR_SPEC, (batch, n), gen, dev)
+    rows, _, _ = _msm_stages(curve, srs.g_lag, scal, c, MF.lanes_for(n), timed=True)
+    for name, row in rows.items():
+        log(f"[kernels] {name} {row['shape']}: max_abs_err={row['err']}")
+        if row["err"]:
+            fail(f"{name} disagrees with its plain version at the main path's shape")
+
+    # degenerate cases on the first 2^12 monomial bases
+    ns = 1 << 12
+    lanes = MF.lanes_for(ns)
+    S = ns // lanes
+    opens = [2 * (i // S) + (0 if i % S == 0 else 1) for i in range(ns)]
+    cases = {
+        "all equal": ([3] * ns, 13),
+        "zeros": ([0] * ns, 13),
+        "0, 1, r-1": ([(0, 1, BN254_FR - 1)[i % 3] for i in range(ns)], 13),
+        "digits that only open a lane": (opens, 13),
+        "0, 1, r-1 at c=7 (m=1)": ([(0, 1, BN254_FR - 1)[i % 3] for i in range(ns)], 7),
+    }
+    pts = E.JPoint(*(t[:, :ns].contiguous() for t in srs.g_mono))
+    for name, (ks, cc) in cases.items():
+        sc = torch.as_tensor(FR_SPEC.encode(ks)).to(dev)[:, None, :]
+        crow, _, wsums = _msm_stages(curve, pts, sc, cc, lanes)
+        got = MS._host_horner(curve, E.JPoint(*(t[:, :, None] for t in wsums)), cc)[0]
+        errs = {k: v["err"] for k, v in crow.items()}
+        ok = got == _oracle(ks) and MF.msm(curve, pts, sc[:, 0], cc) == got
+        log(f"[kernels] degenerate '{name}' n=2^12 c={cc}: max_abs_err={errs} oracle={ok}")
+        if any(errs.values()) or not ok:
+            fail(f"v3 MSM kernels wrong on the degenerate case '{name}'")
+    return rows
+
+
+def phase_msm_batch(dev, gen, srs, batch: int):
+    """Phase 3: a full k=17 batch through msm_fused on the card equals the
+    serial Pippenger on the card and the host oracle."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    curve = E.BN254_CURVE
+    scal = _rand_words(FR_SPEC, (batch, srs.n), gen, dev)
+    t0 = time.time()
+    fused = MF.msm_batch(curve, srs.g_mono, scal)
+    t_fused = time.time() - t0
+    t0 = time.time()
+    serial = MS.msm_batch(curve, srs.g_mono, scal)
+    t_serial = time.time() - t0
+    ks = FR_SPEC.decode(scal.cpu().numpy())
+    n = srs.n
+    oracle = [_oracle(ks[b * n:(b + 1) * n]) for b in range(batch)]
+    log(f"[msm] k=17 batch of {batch}: v3 pipeline {t_fused:.2f}s, serial "
+        f"{t_serial:.2f}s; v3 == serial: {fused == serial}; v3 == oracle: "
+        f"{fused == oracle}")
+    if fused != serial or fused != oracle:
+        fail("the v3 MSM pipeline disagrees with the serial Pippenger or the oracle")
+
+
 class _Seeded:
     """`randbelow` over a seeded generator, for ref_curve.ecdsa_keygen."""
 
@@ -183,6 +358,27 @@ def _det_rng(seed: bytes):
     return rng
 
 
+# The largest commit batch of keygen and the proof (9 fixed and 9 sigma
+# columns in keygen, 8 advice columns in the proof): phase 2 checks the MSM
+# kernels at 20 windows x this many rows, and the main path must stay within.
+COMMIT_BATCH = 9
+
+KERNEL_META = {
+    "montmul": ("webauthn_halo2_tpu_torch/csrc/montmul.cu",
+                "webauthn_halo2_tpu/ops/pallas_kernels.py:67"),
+    "ntt_stage_a": ("webauthn_halo2_tpu_torch/csrc/ntt.cu",
+                    "webauthn_halo2_tpu/ops/ntt_pallas.py:82"),
+    "ntt_stage_b": ("webauthn_halo2_tpu_torch/csrc/ntt.cu",
+                    "webauthn_halo2_tpu/ops/ntt_pallas.py:133"),
+    "msm_interior": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
+                     "webauthn_halo2_tpu/ops/msm_pallas.py:403"),
+    "msm_scan": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
+                 "webauthn_halo2_tpu/ops/msm_pallas.py:492"),
+    "msm_combine": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
+                    "webauthn_halo2_tpu/ops/msm_pallas.py:712"),
+}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -194,8 +390,12 @@ def main() -> int:
                                                                ecdsa_sign)
         from webauthn_halo2_tpu_torch.ops import kernels as K
         from webauthn_halo2_tpu_torch.ops import modops as M
+        from webauthn_halo2_tpu_torch.ops import msm as MS
+        from webauthn_halo2_tpu_torch.ops import msm_fused as MF
         from webauthn_halo2_tpu_torch.ops import ntt as N
+        from webauthn_halo2_tpu_torch.plonk import keygen as KG
         from webauthn_halo2_tpu_torch.plonk import prover as PR
+        from webauthn_halo2_tpu_torch.plonk.srs import get_srs
     except ImportError as e:
         fail(f"the port's package is not here: {e}")
     dev = torch.device("cuda")
@@ -204,6 +404,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     card = smi[0] if smi else "nvidia-smi gave nothing"
     t_all = time.time()
+    if KG.MSM_ENGINE is not MF:
+        fail("the commit engine is not the v3 pipeline, the main path")
 
     # 1. build
     t0 = time.time()
@@ -213,14 +415,38 @@ def main() -> int:
 
     # 2. kernels against their plain versions
     t0 = time.time()
-    rows = phase_kernels(dev, torch.Generator(device=dev).manual_seed(17))
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = phase_kernels(dev, gen)
+    params = CircuitParams()
+    srs = get_srs(params.degree, device=dev)
+    rows.update(phase_msm_kernels(dev, gen, srs, COMMIT_BATCH))
     log(f"[kernels] all kernels equal their plain versions ({time.time() - t0:.1f}s)")
 
-    # 3-5: the main path, with the launch counters from zero
-    M.LAUNCHES["montmul"] = 0
-    N.LAUNCHES["ntt_stage_a"] = 0
-    N.LAUNCHES["ntt_stage_b"] = 0
-    params = CircuitParams()
+    # 3. a full k=17 MSM batch: v3 pipeline == serial Pippenger == oracle
+    t0 = time.time()
+    phase_msm_batch(dev, gen, srs, COMMIT_BATCH)
+    log(f"[msm] done ({time.time() - t0:.1f}s)")
+
+    # 4-6: the main path, with the launch counters from zero; the batch
+    # sizes that reach the v3 pipeline are recorded on the way
+    batches = []
+    window_sums = MF.window_sums
+
+    def recording_window_sums(curve, points, scalars, c, lanes):
+        batches.append(scalars.shape[1])
+        return window_sums(curve, points, scalars, c, lanes)
+
+    MF.window_sums = recording_window_sums
+
+    def counts():
+        return {"montmul": M.LAUNCHES["montmul"],
+                "ntt_stage_a": N.LAUNCHES["ntt_stage_a"],
+                "ntt_stage_b": N.LAUNCHES["ntt_stage_b"],
+                **MF.LAUNCHES, "serial_bucket_sums": MS.CALLS["window_bucket_sum"]}
+
+    for table in (M.LAUNCHES, N.LAUNCHES, MF.LAUNCHES, MS.CALLS):
+        for name in table:
+            table[name] = 0
     t0 = time.time()
     pk = api.proving_key(params, device=dev)
     torch.cuda.synchronize()
@@ -235,16 +461,14 @@ def main() -> int:
     def le(v):
         return int(v).to_bytes(32, "little")
 
-    def counts():
-        return {"montmul": M.LAUNCHES["montmul"],
-                "ntt_stage_a": N.LAUNCHES["ntt_stage_a"],
-                "ntt_stage_b": N.LAUNCHES["ntt_stage_b"]}
+    def prove():
+        return api.generate_proof(le(r), le(s), le(pub[0]), le(pub[1]), le(m),
+                                  params=params, device=dev,
+                                  rng=_det_rng(b"chip_smoke"))
 
     after_keygen = counts()
     t0 = time.time()
-    proof = api.generate_proof(le(r), le(s), le(pub[0]), le(pub[1]), le(m),
-                               params=params, device=dev,
-                               rng=_det_rng(b"chip_smoke"))
+    proof = prove()
     prove_s = time.time() - t0
     spans = dict(PR.LAST_SPANS)
     per_proof = {k: v - after_keygen[k] for k, v in counts().items()}
@@ -267,29 +491,44 @@ def main() -> int:
         f"results/proof_shplonk_k17.hex accepted={jax_ok} ({time.time() - t0:.1f}s)")
     if not jax_ok:
         fail("the port's verifier rejected the JAX package's k=17 proof")
-
-    # 6. counters and the kernels line
     launches = counts()
+    MF.window_sums = window_sums
+
+    # 7. the same proof on the serial route: byte for byte
+    KG.MSM_ENGINE = MS
+    try:
+        t0 = time.time()
+        serial_calls = MS.CALLS["window_bucket_sum"]
+        serial_proof = prove()
+        serial_calls = MS.CALLS["window_bucket_sum"] - serial_calls
+    finally:
+        KG.MSM_ENGINE = MF
+    log(f"[serial] proof on the serial route in {time.time() - t0:.1f}s "
+        f"({serial_calls} serial bucket sums): identical bytes: "
+        f"{serial_proof == proof}")
+    if serial_proof != proof:
+        fail("the serial route's proof differs from the v3 route's")
+    if not serial_calls:
+        fail("the serial route never ran the serial bucket sum")
+
+    # 8. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
-        f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}")
-    for name, count in launches.items():
-        if count == 0:
+        f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
+        f"commit batches {batches}")
+    if launches["serial_bucket_sums"]:
+        fail("the default route ran the serial bucket sum")
+    if max(batches) > COMMIT_BATCH:
+        fail(f"a commit batch of {max(batches)} exceeds the {COMMIT_BATCH} checked in phase 2")
+    for name in KERNEL_META:
+        if launches[name] == 0:
             fail(f"kernel {name} was never launched on the main path")
-    meta = {
-        "montmul": ("webauthn_halo2_tpu_torch/csrc/montmul.cu",
-                    "webauthn_halo2_tpu/ops/pallas_kernels.py:67"),
-        "ntt_stage_a": ("webauthn_halo2_tpu_torch/csrc/ntt.cu",
-                        "webauthn_halo2_tpu/ops/ntt_pallas.py:82"),
-        "ntt_stage_b": ("webauthn_halo2_tpu_torch/csrc/ntt.cu",
-                        "webauthn_halo2_tpu/ops/ntt_pallas.py:133"),
-    }
     kernels = []
     for name, row in rows.items():
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = row["ops"] / IMAD_PER_S * 1e3
         kernels.append({
-            "name": name, "route": "cuda", "source": meta[name][0],
-            "replaces": meta[name][1], "launches": launches[name],
+            "name": name, "route": "cuda", "source": KERNEL_META[name][0],
+            "replaces": KERNEL_META[name][1], "launches": launches[name],
             "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -8,9 +8,10 @@ proofs (median and quartiles of the wall time, each ending in a device
 synchronise), then proves once more under torch.profiler (CPU and CUDA
 activities). From the profiled proof it prints the summed time of the
 kernels on the device, its share of the proof's wall time (the device's
-busy share; the rest is idle), the launch count, the per-phase spans and
-the kernels with the most device time, and writes the operator table to
---out. Needs one CUDA card.
+busy share; the rest is idle), the launch count, the per-phase spans with
+the kernels launched and the device time inside each, the port's own kernel
+launches, the card's name and power limit, and the kernels with the most
+device time, and writes the operator table to --out. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import hashlib
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -53,8 +55,25 @@ def main() -> int:
     from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams, ECDSAInputs
     from webauthn_halo2_tpu_torch.ops import kernels as K
     from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
     from webauthn_halo2_tpu_torch.ops import ntt as N
     from webauthn_halo2_tpu_torch.plonk import prover as PR
+
+    class PhaseSpan(PR._Span):
+        """The prover's phase span, also a profiler range, closed after the
+        span's closing device fence."""
+
+        def __enter__(self):
+            super().__enter__()
+            self.rf = torch.profiler.record_function("phase: " + self.name)
+            self.rf.__enter__()
+            return self
+
+        def __exit__(self, *a):
+            super().__exit__(*a)
+            self.rf.__exit__(*a)
+
+    PR._Span = PhaseSpan
 
     dev = torch.device("cuda")
     K.build_all()
@@ -76,7 +95,7 @@ def main() -> int:
         walls.append(time.time() - t0)
     q = statistics.quantiles(walls, n=4) if len(walls) > 1 else walls * 3
 
-    for d in (M.LAUNCHES, N.LAUNCHES):
+    for d in (M.LAUNCHES, N.LAUNCHES, MF.LAUNCHES):
         for key in d:
             d[key] = 0
     torch.cuda.synchronize()
@@ -85,15 +104,34 @@ def main() -> int:
         api.generate_proof(*args_, params=params, device=dev, rng=_det_rng(b"prof"))
         torch.cuda.synchronize()
         wall = time.time() - t0
+    # the phase ranges also show on the device as annotations: not kernels
     events = prof.key_averages()
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                      and not e.key.startswith("phase: ")),
                      key=lambda e: e.self_device_time_total, reverse=True)
     device_us = sum(e.self_device_time_total for e in kernels)
+    # each device kernel goes to the phase whose host range holds its start
+    # (the spans fence the device at both ends)
+    phases = {}
+    raw = prof.events()
+    dev_events = [e for e in raw if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("phase: ")]
+    for ph in (e for e in raw if e.name.startswith("phase: ")
+               and e.device_type == DeviceType.CPU):
+        t0_, t1_ = ph.time_range.start, ph.time_range.end
+        inside = [e for e in dev_events if t0_ <= e.time_range.start <= t1_]
+        phases[ph.name[len("phase: "):]] = {
+            "wall_s": (t1_ - t0_) / 1e6, "kernel_launches": len(inside),
+            "device_kernel_s": sum(e.time_range.elapsed_us() for e in inside) / 1e6}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         f.write(events.table(sort_by="self_device_time_total", row_limit=60))
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
+        "nvidia_smi": smi,
         "prove_wall_s_runs": walls,
         "prove_wall_s_median": statistics.median(walls),
         "prove_wall_s_quartiles": [q[0], q[2]],
@@ -101,8 +139,9 @@ def main() -> int:
         "device_kernel_s": device_us / 1e6,
         "device_busy_share": device_us / 1e6 / wall,
         "kernel_launches": sum(e.count for e in kernels),
-        "port_kernel_launches": {**M.LAUNCHES, **N.LAUNCHES},
+        "port_kernel_launches": {**M.LAUNCHES, **N.LAUNCHES, **MF.LAUNCHES},
         "spans_s": PR.LAST_SPANS,
+        "phases_under_profiler": phases,
         "top_kernels_by_device_time": [
             {"name": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
              "count": e.count} for e in kernels[:12]],

@@ -1,0 +1,243 @@
+"""The port's v3 MSM pipeline (ops/msm_fused.py) against the JAX package (CPU).
+
+On the CPU every wrapper takes its plain version; csrc/msm.cu runs only on
+the card, where chip_smoke.py holds each kernel against these plain
+versions word for word.
+
+  * The port's EC bodies (add_unsafe, which with Z2 = one is the mixed
+    add; double; complete add) against the bodies of the JAX package's
+    Pallas MSM kernels (msm_pallas._madd_body, _jadd_unsafe_body,
+    _jdouble_body, _jadd_complete_body), run as plain jnp on the same SRS
+    points, infinities, P == Q and P == -Q. Affine ints, exact.
+  * Every commitment of plonk/keygen goes through its one engine.
+  * The plain pipeline against the JAX package's stored MSM outputs and the
+    host oracle of tests/test_torch_msm.py, on degenerate scalars, and at
+    window sizes whose combine has m = 1, 2 and m > 2 buckets per chunk.
+  * The plain combine against the serial engine's suffix sums.
+  * The kernels' library name changes when a shared header changes.
+The JAX Pallas kernels themselves take minutes per tiny MSM in interpret
+mode, so they are held here through their bodies and the stored XLA MSM.
+"""
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_msm import JAX_MSM, _hex, _inputs, _oracle
+from webauthn_halo2_tpu_torch import convert
+from webauthn_halo2_tpu_torch.fields.constants import BN254_FR
+from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC, W
+from webauthn_halo2_tpu_torch.fields.ref_curve import BN254_G1_CURVE
+from webauthn_halo2_tpu_torch.ops import ec as E
+from webauthn_halo2_tpu_torch.ops import kernels as K
+from webauthn_halo2_tpu_torch.ops import msm as MS
+from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+# The suite runs several test processes on one host (pytest-xdist); torch's
+# default of one thread per core then oversubscribes it, and the small
+# int64 ops of the plain kernels run several times slower.
+torch.set_num_threads(2)
+
+CURVE = E.BN254_CURVE
+G = BN254_G1_CURVE
+
+
+def _srs_points(count: int) -> list:
+    """The first `count` monomial SRS points [tau^i] G as host affine ints."""
+    g, _ = _inputs(3 if count <= 8 else count.bit_length())
+    return E.to_affine_ints(CURVE, convert.point_from_jax(*g, device="cpu"))[:count]
+
+
+def _jax_affine(JE, xyz) -> list:
+    return JE.to_affine_ints(JE.BN254_CURVE, JE.JPoint(*xyz))
+
+
+def _port(pts: list) -> E.JPoint:
+    return E.from_affine_ints(CURVE, pts)
+
+
+def test_ec_bodies_match_jax_pallas_bodies():
+    import jax.numpy as jnp
+
+    from webauthn_halo2_tpu.fields.limbs import L
+    from webauthn_halo2_tpu.ops import ec as JE
+    from webauthn_halo2_tpu.ops import msm_pallas as MP
+
+    fq = JE.BN254_CURVE.field
+    p_col, one, pad, c256 = (jnp.asarray(np.asarray(v).reshape(L, 1), jnp.int32)
+                             for v in (fq.p_limbs, fq.one_mont, fq.sub_pad,
+                                       fq.c256_limbs))
+    ps = _srs_points(8)
+    neg2 = G.neg(ps[2])
+
+    def both(pts):
+        return JE.from_affine_ints(JE.BN254_CURVE, pts), _port(pts)
+
+    # madd: a Jacobian sum (Z != 1) + distinct affine points
+    a, c, aff = [ps[0], ps[1], ps[2]], [ps[3], ps[7], ps[6]], [ps[4], ps[5], ps[1]]
+    (jA, pA), (jC, pC), (jB, pB) = both(a), both(c), both(aff)
+    jx, jy, jz = MP._jadd_unsafe_body(fq, tuple(jA), tuple(jC), p_col, pad, c256)
+    got_j = _jax_affine(JE, MP._madd_body(fq, jx, jy, jz, jB.x, jB.y,
+                                          p_col, pad, c256, one))
+    # the port's plain counterpart of the mixed add is add_unsafe with Z2 = one
+    got_p = E.to_affine_ints(CURVE, E.add_unsafe(CURVE, E.add_unsafe(CURVE, pA, pC), pB))
+    assert got_p == got_j == [G.add(G.add(x, y), z) for x, y, z in zip(a, c, aff)]
+
+    # add_unsafe: distinct points and infinities on either side
+    a = [ps[0], None, ps[2], None]
+    b = [ps[1], ps[3], None, None]
+    (jA, pA), (jB, pB) = both(a), both(b)
+    got_j = _jax_affine(JE, MP._jadd_unsafe_body(fq, tuple(jA), tuple(jB),
+                                                 p_col, pad, c256))
+    got_p = E.to_affine_ints(CURVE, E.add_unsafe(CURVE, pA, pB))
+    assert got_p == got_j == [G.add(x, y) for x, y in zip(a, b)]
+
+    # double, infinity included
+    a = [ps[0], ps[5], None]
+    jA, pA = both(a)
+    got_j = _jax_affine(JE, MP._jdouble_body(fq, tuple(jA), p_col, pad, c256))
+    got_p = E.to_affine_ints(CURVE, E.double(CURVE, pA))
+    assert got_p == got_j == [G.add(x, x) for x in a]
+
+    # complete add: P + Q, P == Q, P == -Q, infinities
+    a = [ps[0], ps[1], ps[2], None, ps[4], None]
+    b = [ps[5], ps[1], neg2, ps[6], None, None]
+    (jA, pA), (jB, pB) = both(a), both(b)
+    got_j = _jax_affine(JE, MP._jadd_complete_body(fq, tuple(jA), tuple(jB),
+                                                   p_col, pad, c256))
+    got_p = E.to_affine_ints(CURVE, E.add(CURVE, pA, pB))
+    assert got_p == got_j == [G.add(x, y) for x, y in zip(a, b)]
+
+
+def test_every_commit_goes_through_the_one_engine(monkeypatch):
+    """plonk/keygen's three commit functions all call `MSM_ENGINE`, which is
+    the v3 pipeline unless a caller sets it to another engine."""
+    from webauthn_halo2_tpu_torch.plonk import keygen as KG
+
+    assert KG.MSM_ENGINE is MF
+    seen = []
+
+    class Engine:
+        def msm_batch(self, curve, points, scalars):
+            seen.append(("batch", points, scalars.shape))
+            return ["batch"] * scalars.shape[1]
+
+        def msm(self, curve, points, scalars):
+            seen.append(("one", points, scalars.shape))
+            return "one"
+
+    monkeypatch.setattr(KG, "MSM_ENGINE", Engine())
+
+    class Srs:
+        g_lag, g_mono = "lagrange", "monomial"
+
+    col = torch.zeros((W, 8), dtype=torch.int32)
+    assert KG.commit_lagrange_batch(Srs, [col, col]) == ["batch"] * 2
+    assert KG.commit_coeff_batch(Srs, torch.stack([col] * 3, dim=1)) == ["batch"] * 3
+    assert KG.commit_coeff(Srs, col) == "one"
+    assert KG.commit_lagrange_batch(Srs, []) == []
+    assert seen == [("batch", "lagrange", (W, 2, 8)), ("batch", "monomial", (W, 3, 8)),
+                    ("one", "monomial", (W, 8))]
+
+
+@pytest.mark.parametrize("logn", [8, 10])
+def test_msm_batch_matches_jax_and_oracle(logn):
+    g, scalars = _inputs(logn)
+    pts = convert.point_from_jax(*g, device="cpu")
+    sc = torch.stack([torch.as_tensor(FR_SPEC.encode(ks)) for ks in scalars], dim=1)
+    got = MF.msm_batch(CURVE, pts, sc)
+    assert got == [_oracle(ks) for ks in scalars]
+    assert _hex(got) == JAX_MSM[logn]
+
+
+def _opening_digits(n: int, lanes: int) -> list:
+    """Scalars whose window-0 digit 2j sits only at the first step of lane j."""
+    S = n // lanes
+    return [2 * (i // S) + (0 if i % S == 0 else 1) for i in range(n)]
+
+
+@pytest.mark.parametrize("c, combine_g, m", [(4, 512, 1), (5, 16, 2), (6, 16, 4)])
+def test_degenerate_scalars_and_combine_shapes(c, combine_g, m, monkeypatch):
+    """One run spanning many lanes (all scalars equal), zeros, 0 / 1 / r-1,
+    and digits whose only point opens a lane, as one batch; at window sizes
+    whose combine has m = 1, 2 and 4 buckets per chunk (a narrower chunking
+    than the card's G = 512 keeps m > 2 cheap here)."""
+    monkeypatch.setattr(MF, "COMBINE_G", combine_g)
+    n = 1 << 6
+    g, _ = _inputs(6)
+    pts = convert.point_from_jax(*g, device="cpu")
+    cases = [[3] * n, [0] * n, [(0, 1, BN254_FR - 1)[i % 3] for i in range(n)],
+             _opening_digits(n, MF.lanes_for(n))]
+    assert MF._combine_shape(1 << c) == (min(combine_g, 1 << c), m)
+    sc = torch.stack([torch.as_tensor(FR_SPEC.encode(ks)) for ks in cases], dim=1)
+    assert MF.msm_batch(CURVE, pts, sc, c=c) == [_oracle(ks) for ks in cases]
+
+
+def test_combine_plain_matches_serial_suffix_sums(monkeypatch):
+    """sum_b b B_b by the (m, G) decomposition equals the serial engine's
+    suffix sums and their total and the host sum, on buckets of distinct
+    SRS points with empty (infinite) buckets between them, where suffix
+    partials repeat."""
+    monkeypatch.setattr(MF, "COMBINE_G", 16)
+    nb = 64  # G = 16, m = 4
+    g, _ = _inputs(7)
+    ps = E.to_affine_ints(CURVE, convert.point_from_jax(*g, device="cpu"))
+    rng = np.random.default_rng(7)
+    rows = [[None if rng.random() < 0.4 else ps[r * nb + b] for b in range(nb)]
+            for r in range(2)]
+    rows[1][nb - 8:] = [None] * 8
+    buckets = E.JPoint(*(t.reshape(W, 2, nb) for t in _port(rows[0] + rows[1])))
+    got = E.to_affine_ints(CURVE, MF.combine_plain(CURVE, buckets))
+    inf1 = E.infinity((2, 1), CURVE)
+    zeroed = E.JPoint(*(torch.cat([i, b[..., 1:]], dim=-1)
+                        for i, b in zip(inf1, buckets)))
+    sfx = MS._suffix_sum_points(CURVE, zeroed)
+    serial = E.to_affine_ints(CURVE, MS._sum_points(CURVE, MS._pt_cols(sfx, slice(1, nb))))
+    host = []
+    for row in rows:
+        acc = None
+        for b, p in enumerate(row):
+            acc = G.add(acc, G.mul(b, p)) if p else acc
+        host.append(acc)
+    assert got == serial == host
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
+    g, scalars = _inputs(6)
+    pts = convert.point_from_jax(*g, device="cpu")
+    digits = MS.scalar_digits(torch.as_tensor(FR_SPEC.encode(scalars[0], mont=False)), 6)
+    sdig, order = MF.sorted_stream(digits, MF.lanes_for(64))
+    with pytest.raises(ValueError, match="CUDA"):
+        MF.interior_cuda(CURVE, pts.x, pts.y, sdig, order, 64)
+    buckets, bnd, seg = MF.interior(CURVE, pts.x, pts.y, sdig, order, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        MF.scan_cuda(CURVE, bnd, seg)
+    with pytest.raises(ValueError, match="CUDA"):
+        MF.combine_cuda(CURVE, buckets)
+    assert MF.LAUNCHES == {"msm_interior": 0, "msm_scan": 0, "msm_combine": 0}
+
+
+def test_sorted_stream_is_step_major_digit_order():
+    rng = np.random.default_rng(3)
+    digits = torch.as_tensor(rng.integers(0, 16, size=(3, 64)))
+    sdig, order = MF.sorted_stream(digits, 4)  # K = 4 lanes, S = 16 steps
+    assert sdig.shape == order.shape == (3, 16, 4)
+    lane_major = order.transpose(1, 2).reshape(3, 64).to(torch.int64)
+    ref_dig, ref_order = torch.sort(digits, dim=-1, stable=True)
+    assert torch.equal(lane_major, ref_order)
+    assert torch.equal(sdig.transpose(1, 2).reshape(3, 64).to(torch.int64), ref_dig)
+
+
+def test_library_digest_covers_every_shared_header(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(K.CSRC, csrc)
+    monkeypatch.setattr(K, "CSRC", csrc)
+    before = {name: K._so_path(name) for name in K.SOURCES}
+    with open(csrc / "ec.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = {name: K._so_path(name) for name in K.SOURCES}
+    assert all(before[name] != after[name] for name in K.SOURCES)
+    with open(csrc / "field.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert all(after[name] != K._so_path(name) for name in K.SOURCES)

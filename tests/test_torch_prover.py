@@ -5,10 +5,12 @@ lookup and copy constraints) and its public-input circuit, copied here.
 The JAX package takes minutes on this CPU to key and prove them, so its
 outputs under the deterministic `rng` below are stored here: the vk
 transcript digest and the proof bytes. The port must reproduce both byte
-for byte, and its verifier must accept the JAX proofs. The `slow` test
-recomputes the stored values live from the JAX package and has the JAX
-verifier accept the port's proofs.
+for byte, on the default (v3) commit route and on the serial one, and its
+verifier must accept the JAX proofs. The `slow` test recomputes the stored
+values live from the JAX package and has the JAX verifier accept the
+port's proofs.
 """
+import functools
 import hashlib
 
 import pytest
@@ -149,15 +151,20 @@ def srs():
     return get_srs(K, device="cpu")
 
 
-@pytest.fixture(scope="module", params=sorted(CIRCUITS))
-def port_proof(request, srs):
-    """(name, port pk, instances, port proof) per circuit."""
-    name = request.param
+@functools.lru_cache(maxsize=None)
+def _keyed_and_proved(name: str):
     cs, fixed, advice, instances, copies = CIRCUITS[name](CS)
-    pk = keygen(srs, cs, fixed, copies, device="cpu")
+    pk = keygen(get_srs(K, device="cpu"), cs, fixed, copies, device="cpu")
     proof = create_proof(pk, advice, instances, rng=_det_rng(JAX_REF[name]["seed"]),
                          device="cpu")
     return name, pk, instances, proof
+
+
+@pytest.fixture(scope="module", params=sorted(CIRCUITS))
+def port_proof(request, srs):
+    """(name, port pk, instances, port proof) per circuit, made once per
+    process."""
+    return _keyed_and_proved(request.param)
 
 
 def test_vk_transcript_repr_matches_jax(port_proof):
@@ -179,6 +186,23 @@ def test_port_verifier_accepts_jax_proof_and_rejects_tampering(port_proof, srs):
     assert not verify_proof(pk.vk, srs, bytes(bad), instances)
     if instances:  # the proof is bound to its public inputs
         assert not verify_proof(pk.vk, srs, jax_proof, [[43, 99]])
+
+
+@pytest.mark.parametrize("port_proof", ["toy"], indirect=True)
+def test_serial_msm_route_gives_the_same_proof(port_proof, monkeypatch):
+    """Committing through the serial Pippenger instead of the v3 pipeline
+    gives the same commitments, so the same proof bytes."""
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.plonk import keygen as KG
+
+    name, pk, instances, _ = port_proof
+    _, _, advice, _, _ = CIRCUITS[name](CS)
+    monkeypatch.setattr(KG, "MSM_ENGINE", MS)
+    calls = MS.CALLS["window_bucket_sum"]
+    proof = create_proof(pk, advice, instances, rng=_det_rng(JAX_REF[name]["seed"]),
+                         device="cpu")
+    assert MS.CALLS["window_bucket_sum"] > calls
+    assert proof.hex() == JAX_REF[name]["proof"]
 
 
 def _jax_outputs(name: str):

@@ -3,8 +3,9 @@
 Each source is compiled on its own into a shared library with a plain C
 interface (`nvcc -gencode arch=compute_90a,code=sm_90a -shared`), all
 sources at once in parallel, into `build/kernels/` at the repository root.
-A library's file name carries a digest of its sources, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Nothing is built or
+A library's file name carries a digest of its source, of every shared
+header (csrc/*.cuh) and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. Nothing is built or
 loaded when this module is imported: the first launch builds.
 
 Every C entry returns `cudaGetLastError()`; `check` raises on anything but 0.
@@ -21,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("montmul", "ntt")
+SOURCES = ("montmul", "ntt", "msm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -34,6 +35,12 @@ _SIGNATURES = {
     "wh2_montmul": [_P, _LL, _I, _P, _LL, _I, _P, _LL, _U32P, _U32, _P],
     "wh2_ntt_stage_a": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
     "wh2_ntt_stage_b": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
+    "wh2_msm_interior": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _U32P, _U32, _U32P, _P],
+    "wh2_msm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                     _U32P, _U32, _P],
+    "wh2_msm_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U32P, _U32,
+                        _U32P, _P],
 }
 
 
@@ -59,7 +66,8 @@ def _nvcc() -> str:
 
 def _so_path(name: str) -> Path:
     h = hashlib.sha256()
-    for f in (CSRC / "field.cuh", CSRC / f"{name}.cu"):
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -120,6 +128,15 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _words(arr) -> ctypes.Array:
+    return (ctypes.c_uint32 * 8)(*[int(v) & 0xFFFFFFFF for v in arr])
+
+
 def modulus_words(spec) -> ctypes.Array:
     """The modulus of a FieldSpec as a host uint32[8] for a C entry."""
-    return (ctypes.c_uint32 * 8)(*[int(v) & 0xFFFFFFFF for v in spec.p_words])
+    return _words(spec.p_words)
+
+
+def one_words(spec) -> ctypes.Array:
+    """R mod p (Montgomery one) of a FieldSpec as a host uint32[8]."""
+    return _words(spec.one_mont)

@@ -22,6 +22,11 @@ since it is a chain of W * c doublings on a handful of points.
 
 PRECONDITION (as in the JAX package): points pairwise distinct, as SRS
 bases are; steps 3-4 use `add_unsafe`. Step 5 uses complete adds.
+
+The prover commits through the v3 pipeline of ops/msm_fused.py; this
+serial engine is its plain reference, and commits take it when
+plonk/keygen.MSM_ENGINE is set to this module. `CALLS` counts the bucket
+sums it runs, so a run can show which route it took.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from .ec import CurveSpec, JPoint
 
 DEFAULT_C = 13
 SCALAR_BITS = 32 * W
+
+CALLS = {"window_bucket_sum": 0}
 
 
 def _default_c(n: int) -> int:
@@ -122,27 +129,22 @@ def _scatter_(buckets: JPoint, target: torch.Tensor, vals: JPoint) -> None:
         b.scatter_(-1, idx, v)
 
 
-def _window_bucket_sum(curve: CurveSpec, spts: JPoint, sdig: torch.Tensor,
-                       c: int, lanes: int) -> JPoint:
-    """sum_b b * (sum of points with digit b) for each row.
+def _lane_runs(curve: CurveSpec, step, S: int, nb: int, grow):
+    """Step 3, the K-lane run accumulation, shared by both engines.
 
-    spts (8, R, n) / sdig (R, n) are sorted by digit along n; n % lanes == 0.
-    Returns a JPoint of (8, R)."""
-    R, n = sdig.shape
-    K = lanes
-    S = n // K
-    nb = 1 << c
-    dev = sdig.device
-    sdig2 = sdig.reshape(R, K, S)
-    px, py, pz = (t.reshape(W, R, K, S) for t in spts)
-
-    buckets = E.infinity((R, nb + 1), curve, dev)  # slot nb = dump
-    buckets = JPoint(*(t.contiguous() for t in buckets))
-    acc = cur = first_sum = first_dig = has_first = None
+    Lane k walks sorted positions [k S, (k + 1) S); `step(t)` gives the
+    digits (R, K) and points (8, R, K) at step t of every lane, and
+    `grow(acc, pt)` adds a point into a run. Returns (buckets (8, R, nb + 1)
+    holding the closed interior runs, slot nb a dump; the boundary
+    fragments [A_0, B_0, A_1, B_1, ...] (8, R, 2K); their digits (R, 2K))."""
+    acc = cur = first_sum = first_dig = has_first = buckets = None
     for t in range(S):
-        d = sdig2[:, :, t]
-        pt = JPoint(px[..., t], py[..., t], pz[..., t])
+        d, pt = step(t)
         if t == 0:
+            R, K = d.shape
+            dev = d.device
+            buckets = E.infinity((R, nb + 1), curve, dev)
+            buckets = JPoint(*(b.contiguous() for b in buckets))
             acc, cur = pt, d
             first_sum = E.infinity((R, K), curve, dev)
             first_dig = torch.zeros_like(d)
@@ -156,7 +158,7 @@ def _window_bucket_sum(curve: CurveSpec, spts: JPoint, sdig: torch.Tensor,
         has_first = has_first | new_run
         # interior runs: distinct lanes always carry distinct digits here
         _scatter_(buckets, torch.where(emit_scatter, cur, nb), acc)
-        grown = E.add_unsafe_fast(curve, acc, pt)
+        grown = grow(acc, pt)
         acc = E.point_select(new_run, pt, grown)
         cur = d
 
@@ -168,10 +170,37 @@ def _window_bucket_sum(curve: CurveSpec, spts: JPoint, sdig: torch.Tensor,
     seg = torch.stack([a_dig, cur], dim=-1).reshape(R, 2 * K)
     bnd = JPoint(*(torch.stack([a, b], dim=-1).reshape(W, R, 2 * K)
                    for a, b in zip(a_pts, acc)))
+    return buckets, bnd, seg
+
+
+def _tail_mask(seg: torch.Tensor) -> torch.Tensor:
+    """(R, m) segment ids -> True at the last fragment of each segment."""
+    last = torch.ones(seg.shape[:-1] + (1,), dtype=torch.bool, device=seg.device)
+    return torch.cat([seg[:, :-1] != seg[:, 1:], last], dim=1)
+
+
+def _window_bucket_sum(curve: CurveSpec, spts: JPoint, sdig: torch.Tensor,
+                       c: int, lanes: int) -> JPoint:
+    """sum_b b * (sum of points with digit b) for each row.
+
+    spts (8, R, n) / sdig (R, n) are sorted by digit along n; n % lanes == 0.
+    Returns a JPoint of (8, R)."""
+    CALLS["window_bucket_sum"] += 1
+    R, n = sdig.shape
+    K = lanes
+    S = n // K
+    nb = 1 << c
+    dev = sdig.device
+    sdig2 = sdig.reshape(R, K, S)
+    px, py, pz = (t.reshape(W, R, K, S) for t in spts)
+
+    def step(t):
+        return sdig2[:, :, t], JPoint(px[..., t], py[..., t], pz[..., t])
+
+    buckets, bnd, seg = _lane_runs(
+        curve, step, S, nb, lambda acc, pt: E.add_unsafe_fast(curve, acc, pt))
     merged = _prefix_scan_points(curve, bnd, seg)
-    is_tail = torch.cat([seg[:, :-1] != seg[:, 1:],
-                         torch.ones((R, 1), dtype=torch.bool, device=dev)], dim=1)
-    _scatter_(buckets, torch.where(is_tail, seg, nb), merged)
+    _scatter_(buckets, torch.where(_tail_mask(seg), seg, nb), merged)
 
     # drop the dump slot, zero bucket 0, then suffix sums and their total
     buckets = _pt_cols(buckets, slice(0, nb))

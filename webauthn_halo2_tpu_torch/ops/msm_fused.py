@@ -1,0 +1,292 @@
+"""The v3 Pippenger commit pipeline over bn254 G1: the prover's MSM engine.
+
+The port of the JAX package's ops/msm_pallas.py (`_msm_windows_v3` and
+`msm_hostout`, its default commit path on the TPU). B MSMs over one
+affine base set run as R = Wn * B rows, row r = w * B + b being window w
+of MSM b:
+
+  1. scalars -> canonical words -> c-bit digits (`msm.scalar_digits`);
+  2. per row, one sort of the keys (digit << log n) | index, laid out
+     step-major (R, S, K): lane k of a row walks sorted positions
+     [k S, (k + 1) S), and step t of every lane is contiguous;
+  3. the interior kernel: one mixed add per step into each lane's run;
+     closed interior runs go straight into buckets[row, digit], each lane's
+     first run and final accumulator into the boundary fragments
+     [A_0, B_0, A_1, B_1, ...] with their digits;
+  4. the scan kernel: a segmented inclusive scan of the 2K fragments;
+  5. the scatter of each segment's tail (its total) into its bucket;
+  6. the combine kernel: sum_b b * B_b per row over an (m, G) chunking;
+  7. the (R,) window sums to the host, and the Horner fold on host ints.
+
+Each kernel's wrapper sits beside its plain PyTorch version of the same
+function, word for word, and counts its launches in `LAUNCHES`. The
+wrappers take the plain version only for a CPU tensor; for a CUDA tensor
+they launch csrc/msm.cu or raise.
+
+PRECONDITION (as in the JAX package): the base points are affine
+(Z = one) and pairwise distinct, as SRS bases are; runs and fragments are
+sums of disjoint subsets, so they use adds that do not handle P == +-Q.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..fields.limbs import FR_SPEC, W
+from . import ec as E
+from . import kernels as K
+from . import modops as M
+from . import msm as MS
+from .ec import CurveSpec, JPoint
+
+DEFAULT_K_LANES = 2048
+COMBINE_G = 512
+
+LAUNCHES = {"msm_interior": 0, "msm_scan": 0, "msm_combine": 0}
+
+
+def lanes_for(n: int) -> int:
+    """K: at most DEFAULT_K_LANES, at least 16 steps a lane where n
+    allows, K | n. At n = 2^17 that is the JAX package's K = 2048 (S = 64);
+    at small n it keeps the scan of the 2K fragments short."""
+    k = max(1, min(DEFAULT_K_LANES, n // 16))
+    while n % k:
+        k //= 2
+    return k
+
+
+def sorted_stream(digits: torch.Tensor, lanes: int):
+    """(R, n) digits -> (sdig, order), each (R, S, K) int32 step-major.
+
+    One sort of (digit << log n) | index per row: the digit order, ties by
+    point index, as the JAX package's v3 sort gives it."""
+    R, n = digits.shape
+    logn = max(1, (n - 1).bit_length())
+    idx = torch.arange(n, device=digits.device, dtype=torch.int64)
+    key, _ = torch.sort((digits.to(torch.int64) << logn) | idx, dim=-1)
+    S = n // lanes
+
+    def step_major(t):
+        return t.reshape(R, lanes, S).transpose(1, 2).to(torch.int32).contiguous()
+
+    return step_major(key >> logn), step_major(key & ((1 << logn) - 1))
+
+
+def _check_cuda(name: str, *tensors) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError(f"{name} takes contiguous int32 tensors")
+
+
+# --- interior: run accumulation over the sorted stream ------------------
+
+def interior_plain(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
+                   sdig: torch.Tensor, order: torch.Tensor, nb: int):
+    """Plain version of the interior kernel: px/py (8, n) affine bases,
+    sdig/order (R, S, K). Returns (buckets JPoint (8, R, nb) with the closed
+    interior runs and infinity elsewhere, fragments JPoint (8, R, 2K), their
+    digits (R, 2K) int32). The step loop is msm._lane_runs; the kernel's
+    mixed add gives the words of `add_unsafe` with Z2 = one."""
+    R, S, Kl = sdig.shape
+    one = M.one_mont(curve.field, px.device, 3).expand(W, R, Kl)
+    idx = order.to(torch.int64)
+
+    def step(t):
+        i = idx[:, t]
+        return sdig[:, t], JPoint(px[:, i], py[:, i], one)
+
+    buckets, bnd, seg = MS._lane_runs(
+        curve, step, S, nb, lambda acc, pt: E.add_unsafe(curve, acc, pt))
+    buckets = JPoint(*(b[..., :nb].contiguous() for b in buckets))
+    return buckets, bnd, seg
+
+
+def interior_cuda(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
+                  sdig: torch.Tensor, order: torch.Tensor, nb: int):
+    """The interior kernel of csrc/msm.cu; the same outputs as
+    `interior_plain`."""
+    _check_cuda("msm interior", px, py, sdig, order)
+    R, S, Kl = sdig.shape
+    n = px.shape[1]
+    dev = px.device
+    inf = E.infinity((R, nb), curve, dev)
+    buckets = JPoint(*(c.contiguous() for c in inf))
+    bnd = JPoint(*(torch.empty((W, R, 2 * Kl), dtype=torch.int32, device=dev)
+                   for _ in range(3)))
+    seg = torch.empty((R, 2 * Kl), dtype=torch.int32, device=dev)
+    f = curve.field
+    rc = K.lib("msm").wh2_msm_interior(
+        px.data_ptr(), py.data_ptr(), n, sdig.data_ptr(), order.data_ptr(),
+        R, S, Kl, nb, *(c.data_ptr() for c in buckets),
+        *(c.data_ptr() for c in bnd), seg.data_ptr(), K.modulus_words(f),
+        f.n0, K.one_words(f), K.stream_ptr(dev))
+    K.check(rc, "msm interior kernel")
+    LAUNCHES["msm_interior"] += 1
+    return buckets, bnd, seg
+
+
+def interior(curve, px, py, sdig, order, nb):
+    if px.device.type == "cpu":
+        return interior_plain(curve, px, py, sdig, order, nb)
+    return interior_cuda(curve, px, py, sdig, order, nb)
+
+
+# --- scan: the boundary fragments ---------------------------------------
+
+def scan_plain(curve: CurveSpec, bnd: JPoint, seg: torch.Tensor) -> JPoint:
+    """Plain version of the scan kernel: the serial engine's segmented
+    Hillis-Steele scan (the same adds in the same order)."""
+    return MS._prefix_scan_points(curve, bnd, seg)
+
+
+def scan_cuda(curve: CurveSpec, bnd: JPoint, seg: torch.Tensor) -> JPoint:
+    """The scan kernel of csrc/msm.cu on (8, R, m) fragments, (R, m) ids."""
+    bnd = JPoint(*(c.contiguous() for c in bnd))
+    _check_cuda("msm scan", *bnd, seg)
+    R, m = seg.shape
+    out = JPoint(*(torch.empty_like(c) for c in bnd))
+    tmp = JPoint(*(torch.empty_like(c) for c in bnd))
+    f = curve.field
+    rc = K.lib("msm").wh2_msm_scan(
+        *(c.data_ptr() for c in bnd), *(c.data_ptr() for c in out),
+        *(c.data_ptr() for c in tmp), seg.data_ptr(), R, m,
+        K.modulus_words(f), f.n0, K.stream_ptr(seg.device))
+    K.check(rc, "msm scan kernel")
+    LAUNCHES["msm_scan"] += 1
+    return out
+
+
+def scan(curve, bnd, seg):
+    if seg.device.type == "cpu":
+        return scan_plain(curve, bnd, seg)
+    return scan_cuda(curve, bnd, seg)
+
+
+def scatter_tails(buckets: JPoint, merged: JPoint, seg: torch.Tensor) -> None:
+    """In place: each segment's last fragment (its total) into its bucket.
+    A digit with a boundary segment has no interior run, so no write is
+    lost."""
+    R, nb = buckets.x.shape[1:]
+    rows, cols = torch.nonzero(MS._tail_mask(seg), as_tuple=True)
+    flat = rows * nb + seg[rows, cols].to(torch.int64)
+    for b, v in zip(buckets, merged):
+        b.view(W, R * nb)[:, flat] = v[:, rows, cols]
+
+
+# --- combine: sum_b b * B_b ---------------------------------------------
+
+def _combine_shape(nb: int) -> tuple[int, int]:
+    G = min(COMBINE_G, nb)
+    return G, nb // G
+
+
+def combine_plain(curve: CurveSpec, buckets: JPoint) -> JPoint:
+    """Plain version of the combine kernel: buckets (8, R, nb) -> (8, R).
+
+    sum_b b B_b = m sum_{g >= 1} E'_g + sum_g W_g over b = g m + i, with
+    T_g the chunk totals, E' their inclusive suffix over g, and W_g the
+    within-chunk weighted sums (msm_pallas._combine_kernel)."""
+    R, nb = buckets.x.shape[1:]
+    G, m = _combine_shape(nb)
+    dev = buckets.x.device
+    add_u = lambda a, b: E.add_unsafe(curve, a, b)  # noqa: E731
+    add_c = lambda a, b: E.add(curve, a, b)  # noqa: E731
+    ch = JPoint(*(c.reshape(W, R, G, m) for c in buckets))
+
+    def bucket(i):
+        return JPoint(*(c[..., i] for c in ch))
+
+    inf = E.infinity((R, G), curve, dev)
+    run = bucket(m - 1)
+    w = run
+    for i in range(m - 2, 0, -1):
+        run = add_u(run, bucket(i))
+        w = add_c(w, run)
+    if m > 1:
+        run = add_u(run, bucket(0))
+    if m == 1:
+        w = inf
+    lane = torch.arange(G, device=dev).expand(R, G)
+
+    def shifted(p, d):  # lane g sees lane g + d (wrapping, masked by callers)
+        return JPoint(*(torch.roll(c, -d, dims=-1) for c in p))
+
+    e = run
+    d = 1
+    while d < G:
+        e = E.point_select(lane < G - d, add_u(e, shifted(e, d)), e)
+        d *= 2
+    x = E.point_select(lane == 0, inf, e)
+    y = w
+    d = G // 2
+    while d >= 1:
+        x = E.point_select(lane < d, add_c(x, shifted(x, d)), x)
+        y = E.point_select(lane < d, add_u(y, shifted(y, d)), y)
+        d //= 2
+    x = JPoint(*(c[..., 0] for c in x))
+    y = JPoint(*(c[..., 0] for c in y))
+    s = m
+    while s > 1:
+        x = E.double(curve, x)
+        s //= 2
+    return add_c(x, y)
+
+
+def combine_cuda(curve: CurveSpec, buckets: JPoint) -> JPoint:
+    """The combine kernel of csrc/msm.cu: buckets (8, R, nb) -> (8, R)."""
+    buckets = JPoint(*(c.contiguous() for c in buckets))
+    _check_cuda("msm combine", *buckets)
+    R, nb = buckets.x.shape[1:]
+    G, _ = _combine_shape(nb)
+    dev = buckets.x.device
+    out = JPoint(*(torch.empty((W, R), dtype=torch.int32, device=dev)
+                   for _ in range(3)))
+    f = curve.field
+    rc = K.lib("msm").wh2_msm_combine(
+        *(c.data_ptr() for c in buckets), *(c.data_ptr() for c in out), R, nb,
+        G, K.modulus_words(f), f.n0, K.one_words(f), K.stream_ptr(dev))
+    K.check(rc, "msm combine kernel")
+    LAUNCHES["msm_combine"] += 1
+    return out
+
+
+def combine(curve, buckets):
+    if buckets.x.device.type == "cpu":
+        return combine_plain(curve, buckets)
+    return combine_cuda(curve, buckets)
+
+
+# --- the pipeline ---------------------------------------------------------
+
+def window_sums(curve: CurveSpec, points: JPoint, scalars_mont: torch.Tensor,
+                c: int, lanes: int) -> JPoint:
+    """B MSMs through the pipeline: points (8, n) affine, scalars (8, B, n)
+    Montgomery Fr -> window sums JPoint of (8, Wn, B)."""
+    _, B, n = scalars_mont.shape
+    std = M.normalize(FR_SPEC, M.from_mont(FR_SPEC, scalars_mont))
+    digits = MS.scalar_digits(std, c)  # (Wn, B, n)
+    nwin = digits.shape[0]
+    sdig, order = sorted_stream(digits.reshape(nwin * B, n), lanes)
+    nb = 1 << c
+    buckets, bnd, seg = interior(curve, points.x, points.y, sdig, order, nb)
+    merged = scan(curve, bnd, seg)
+    scatter_tails(buckets, merged, seg)
+    wsums = combine(curve, buckets)
+    return JPoint(*(t.reshape(W, nwin, B) for t in wsums))
+
+
+def msm_batch(curve: CurveSpec, points: JPoint, scalars_batch: torch.Tensor,
+              c: int | None = None) -> list:
+    """B MSMs sharing one base set: scalars (8, B, n) Montgomery Fr ->
+    B host affine points (None for infinity)."""
+    n = scalars_batch.shape[-1]
+    c = c if c is not None else MS._default_c(n)
+    return MS._host_horner(curve, window_sums(curve, points, scalars_batch,
+                                              c, lanes_for(n)), c)
+
+
+def msm(curve: CurveSpec, points: JPoint, scalars_mont: torch.Tensor,
+        c: int | None = None):
+    """One MSM: scalars (8, n) Montgomery Fr -> host affine point."""
+    return msm_batch(curve, points, scalars_mont[:, None, :], c)[0]

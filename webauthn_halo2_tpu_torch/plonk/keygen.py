@@ -7,8 +7,9 @@ The port of the JAX package's plonk/keygen.py. Produces:
   * pk: device polynomial tensors in all three bases, the sigma tables,
     and the Lagrange-indicator polynomials (l_0, l_last, l_blind) on the
     extended coset.
-Every commitment goes through the port's serial Pippenger (`msm_batch`)
-and comes back as host affine ints.
+Every commitment goes through `MSM_ENGINE`, the v3 MSM pipeline
+(ops/msm_fused.py, the JAX package's `msm_hostout` route), and comes back
+as host affine ints.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from ..fields.constants import BN254_FR, BN254_FR_DELTA
 from ..fields.limbs import FR_SPEC, W, ints_to_words
 from ..ops import ec as E
 from ..ops import modops as M
-from ..ops.msm import msm, msm_batch
+from ..ops import msm_fused
 from ..device import resolve
 from . import cs as CS
 from .domain import COSET_GEN, Domain
@@ -49,23 +50,31 @@ def _batch_input(cols):
     return cols, cols.shape[1]
 
 
+# The commit engine, read here and nowhere else: a module with `msm_batch`
+# and `msm`. The serial Pippenger of ops/msm.py (the JAX package's
+# WH2_MSM_IMPL=xla configuration) is its plain reference and gives the same
+# affine points, so the same proof bytes; the checks that compare the two
+# routes set this to it.
+MSM_ENGINE = msm_fused
+
+
 def commit_lagrange_batch(srs: SRS, cols) -> list:
     """Commit many Lagrange columns (list of (8, n) or an (8, B, n) stack)."""
     stack, B = _batch_input(cols)
     if not B:
         return []
-    return msm_batch(E.BN254_CURVE, srs.g_lag, stack)
+    return MSM_ENGINE.msm_batch(E.BN254_CURVE, srs.g_lag, stack)
 
 
 def commit_coeff_batch(srs: SRS, cols) -> list:
     stack, B = _batch_input(cols)
     if not B:
         return []
-    return msm_batch(E.BN254_CURVE, srs.g_mono, stack)
+    return MSM_ENGINE.msm_batch(E.BN254_CURVE, srs.g_mono, stack)
 
 
 def commit_coeff(srs: SRS, coeffs_mont: torch.Tensor):
-    return msm(E.BN254_CURVE, srs.g_mono, coeffs_mont)
+    return MSM_ENGINE.msm(E.BN254_CURVE, srs.g_mono, coeffs_mont)
 
 
 @dataclass
