@@ -8,20 +8,31 @@ Phases, one or more lines each:
      one nvcc per source, all started together;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, with exact equality of the words: montmul,
-     NTT stages A and B, and the v3 MSM kernels (interior, scan, combine) at
-     n = 2^17, c = 13, 20 windows x 9 rows, plus small degenerate MSMs that
-     also meet the host oracle;
+     NTT stages A and B, the v3 MSM kernels (interior, scan, combine) at
+     n = 2^17, c = 13, 20 windows x 9 rows, the interior again at the v1
+     route's 20 rows, plus small degenerate MSMs that also meet the host
+     oracle; the fused EC add at the serial route's grow shape with
+     infinities on either side; the int8 tensor-core montmul (one mma tile
+     against a host product first) at (8, 2^19) against its plain version
+     and the montmul kernel, edge words included, driven once through its
+     entry point with the counts from zero;
   3. a full k=17 MSM batch through the v3 pipeline equals the serial
-     Pippenger on the card and the host oracle (sum k_i tau^i) G;
+     Pippenger on the card and the host oracle (sum k_i tau^i) G, and the
+     v1 driver gives the same points;
   4. keygen of the ECDSA-P256 circuit at the default CircuitParams (k=17);
   5. api.generate_proof on a fixed signature with a deterministic rng, every
      commitment through the v3 pipeline;
   6. api.verify accepts it and rejects a tampered copy; the port's verifier
      accepts results/proof_shplonk_k17.hex (made by the JAX package);
   7. the same proof with the serial Pippenger as the commit engine
-     (plonk/keygen.MSM_ENGINE) is byte-identical;
-  8. every kernel launched during phases 4-6 and the serial bucket sum did
-     not; a `kernels` JSON line with launches, times, bounds and the plain
+     (plonk/keygen.MSM_ENGINE), every point add through the fused EC add,
+     is byte-identical;
+  8. the same proof through the v1 driver (interior and combine kernels,
+     the plain boundary scan of fused EC adds, the device Horner) is
+     byte-identical, and the scan kernel is not launched;
+  9. every kernel of a path launched during that path's run (each run with
+     the counts from zero), and the serial bucket sum did not run on the v3
+     route; a `kernels` JSON line with launches, times, bounds and the plain
      versions' times.
 """
 from __future__ import annotations
@@ -43,6 +54,8 @@ import torch
 # instructions: 67e12 / 2 (FMA = 2 flops) / 2 = 16.75e12 IMAD/s.
 HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
+# dense int8 tensor-core operations per second (a multiply-add is two)
+INT8_OPS_PER_S = 1979e12
 # one 8-word CIOS Montgomery multiply: 64 a*b and 64 m*p word products,
 # each a 32x32 -> 64-bit product (two IMADs: low and high half)
 IMAD_PER_MONTMUL = 256
@@ -311,6 +324,117 @@ def phase_msm_kernels(dev, gen, srs, batch: int):
     return rows
 
 
+def phase_interior_v1(dev, gen, srs):
+    """Phase 2, row 7: the interior kernel at the v1 route's launch shape,
+    one MSM of 20 window rows (the v1 driver runs MSMs one at a time), with
+    the scan and combine checked at that shape too."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    n = srs.n
+    scal = _rand_words(FR_SPEC, (1, n), gen, dev)
+    rows, _, _ = _msm_stages(E.BN254_CURVE, srs.g_lag, scal, MS._default_c(n),
+                             MF.lanes_for(n), timed=True)
+    for name, row in rows.items():
+        log(f"[kernels] {name} (v1 shape) {row['shape']}: max_abs_err={row['err']} "
+            f"{row['ms']:.3f} ms")
+        if row["err"]:
+            fail(f"{name} disagrees with its plain version at the v1 route's shape")
+    return rows["msm_interior"]
+
+
+def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
+    """Phase 2, row 8: the fused EC add against `add_unsafe` at the serial
+    route's grow shape (8, R, K): Jacobian sums of two SRS points plus
+    affine SRS points, about a tenth infinite on each side."""
+    from webauthn_halo2_tpu_torch.ops import ec as E
+
+    curve = E.BN254_CURVE
+    n = nrows * lanes
+    N = srs.n
+    i0 = torch.randint(0, N, (n,), generator=gen, device=dev)
+    i1 = (i0 + 1 + torch.randint(0, N - 1, (n,), generator=gen, device=dev)) % N
+    i2 = torch.randint(0, N, (n,), generator=gen, device=dev)
+
+    def srs_pts(i):
+        return E.JPoint(*(c[:, i] for c in srs.g_lag))
+
+    p = E.add_unsafe(curve, srs_pts(i0), srs_pts(i1))
+    q = srs_pts(i2)
+    inf_p = torch.rand(n, generator=gen, device=dev) < 0.1
+    inf_q = torch.rand(n, generator=gen, device=dev) < 0.1
+
+    def shaped(pt, inf):
+        z = torch.where(inf[None], 0, pt.z)
+        return E.JPoint(*(c.reshape(8, nrows, lanes) for c in (pt.x, pt.y, z)))
+
+    p, q = shaped(p, inf_p), shaped(q, inf_q)
+    got = E.add_unsafe_cuda(curve, p, q)
+    want = E.add_unsafe(curve, p, q)
+    torch.cuda.synchronize()
+    err = _pt_err(got, want)
+    adds = int((~inf_p & ~inf_q).sum().item())
+    shape = (f"(8, {nrows}, {lanes}), {int(inf_p.sum())} + {int(inf_q.sum())} "
+             f"infinite operands, {adds} adds")
+    log(f"[kernels] ec_add_unsafe {shape}: max_abs_err={err}")
+    if err:
+        fail("the fused EC add disagrees with add_unsafe")
+    return dict(err=err, shape=shape,
+                ms=_events_ms(lambda: E.add_unsafe_cuda(curve, p, q), 20),
+                plain_ms=_events_ms(lambda: E.add_unsafe(curve, p, q), 3),
+                bytes=9 * ELEM_BYTES * n, ops=16 * IMAD_PER_MONTMUL * adds)
+
+
+def phase_mxu(dev, gen, logn: int = 19):
+    """Phase 2, row 9: one m16n8k32 int8 tile against a host product, then
+    the int8 tensor-core montmul at (8, 2^logn), edge words included, driven
+    once through its entry point with the count from zero and held against
+    its plain version and the montmul kernel. Returns (row, launches)."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC, FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import mxu_mod as X
+
+    A = torch.randint(-128, 128, (16, 32), generator=gen, device=dev).to(torch.int8)
+    B = torch.randint(-128, 128, (8, 32), generator=gen, device=dev).to(torch.int8)
+    C = X.mma_tile(A, B)
+    tile_err = _max_abs_err(C.cpu(), A.cpu().long() @ B.cpu().long().T)
+    log(f"[kernels] mma.sync m16n8k32 s8 tile against a host product: max_abs_err={tile_err}")
+    if tile_err:
+        fail("the int8 mma tile disagrees with a host product")
+
+    n = 1 << logn
+    errs = []
+    for spec, m in ((FQ_SPEC, 1 << 12), (FR_SPEC, n)):
+        a = _rand_words(spec, (m,), gen, dev)
+        b = _rand_words(spec, (m,), gen, dev)
+        p = spec.p
+        edge = [0, 1, 2, p - 2, p - 1]
+        pairs = [(x, y) for x in edge for y in edge]
+        a[:, :len(pairs)] = torch.as_tensor(spec.encode([x for x, _ in pairs], mont=False)).to(dev)
+        b[:, :len(pairs)] = torch.as_tensor(spec.encode([y for _, y in pairs], mont=False)).to(dev)
+        X.LAUNCHES["mxu_montmul"] = 0
+        got = X.mxu_montmul_rows(spec, a, b)
+        launches = X.LAUNCHES["mxu_montmul"]
+        err = max(_max_abs_err(got, X.mxu_montmul_rows_plain(spec, a, b)),
+                  _max_abs_err(got, M.montmul_cuda(spec, a, b)))
+        torch.cuda.synchronize()
+        errs.append(err)
+        log(f"[kernels] mxu_montmul {spec.name} (8, {m}), {len(pairs)} edge pairs: "
+            f"max_abs_err={err} against its plain version and the montmul kernel")
+        if err:
+            fail(f"the int8 montmul disagrees ({spec.name})")
+    ms = _events_ms(lambda: X.mxu_montmul_rows_cuda(FR_SPEC, a, b), 20)
+    mm_ms = _events_ms(lambda: M.montmul_cuda(FR_SPEC, a, b), 20)
+    log(f"[kernels] mxu_montmul (8, 2^{logn}): {ms:.4f} ms against the montmul kernel's "
+        f"{mm_ms:.4f} ms; {X.INT8_MACS} int8 multiply-adds a multiply")
+    return dict(err=max(errs), shape=f"(8, 2^{logn}), Fr, {X.INT8_MACS} int8 MACs a multiply",
+                ms=ms, plain_ms=_events_ms(lambda: X.mxu_montmul_rows_plain(FR_SPEC, a, b), 2),
+                bytes=3 * ELEM_BYTES * n, ops=2 * X.INT8_MACS * n,
+                rate=INT8_OPS_PER_S), launches
+
+
 def phase_msm_batch(dev, gen, srs, batch: int):
     """Phase 3: a full k=17 batch through msm_fused on the card equals the
     serial Pippenger on the card and the host oracle."""
@@ -318,6 +442,7 @@ def phase_msm_batch(dev, gen, srs, batch: int):
     from webauthn_halo2_tpu_torch.ops import ec as E
     from webauthn_halo2_tpu_torch.ops import msm as MS
     from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+    from webauthn_halo2_tpu_torch.ops import msm_v1 as MV
 
     curve = E.BN254_CURVE
     scal = _rand_words(FR_SPEC, (batch, srs.n), gen, dev)
@@ -335,6 +460,13 @@ def phase_msm_batch(dev, gen, srs, batch: int):
         f"{fused == oracle}")
     if fused != serial or fused != oracle:
         fail("the v3 MSM pipeline disagrees with the serial Pippenger or the oracle")
+    nv1 = 3
+    t0 = time.time()
+    v1 = MV.msm_batch(curve, srs.g_mono, scal[:, :nv1])
+    log(f"[msm] k=17 batch of {nv1} through the v1 driver: {time.time() - t0:.2f}s; "
+        f"v1 == v3 == oracle: {v1 == fused[:nv1] == oracle[:nv1]}")
+    if v1 != fused[:nv1] or v1 != oracle[:nv1]:
+        fail("the v1 MSM driver disagrees with the v3 pipeline or the oracle")
 
 
 class _Seeded:
@@ -376,7 +508,19 @@ KERNEL_META = {
                  "webauthn_halo2_tpu/ops/msm_pallas.py:492"),
     "msm_combine": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
                     "webauthn_halo2_tpu/ops/msm_pallas.py:712"),
+    "msm_interior_v1": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
+                        "webauthn_halo2_tpu/ops/msm_pallas.py:269"),
+    "ec_add_unsafe": ("webauthn_halo2_tpu_torch/csrc/ec.cu",
+                      "webauthn_halo2_tpu/ops/pallas_kernels.py:137"),
+    "mxu_montmul": ("webauthn_halo2_tpu_torch/csrc/mxu.cu",
+                    "webauthn_halo2_tpu/ops/mxu_mod.py:363"),
 }
+# The path whose run counts each kernel's launches (default: the v3 main
+# path) and the counter it reads there: row 7 is the interior kernel
+# launched by the v1 driver; row 8 is every point add of the serial route.
+KERNEL_PATH = {"msm_interior_v1": ("v1", "msm_interior"),
+               "ec_add_unsafe": ("serial", "ec_add_unsafe"),
+               "mxu_montmul": ("mxu", "mxu_montmul")}
 
 
 def main() -> int:
@@ -388,10 +532,13 @@ def main() -> int:
         from webauthn_halo2_tpu_torch.fields.ref_curve import (P256_CURVE,
                                                                ecdsa_keygen,
                                                                ecdsa_sign)
+        from webauthn_halo2_tpu_torch.ops import ec as E
         from webauthn_halo2_tpu_torch.ops import kernels as K
         from webauthn_halo2_tpu_torch.ops import modops as M
         from webauthn_halo2_tpu_torch.ops import msm as MS
         from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+        from webauthn_halo2_tpu_torch.ops import msm_v1 as MV
+        from webauthn_halo2_tpu_torch.ops import mxu_mod as X
         from webauthn_halo2_tpu_torch.ops import ntt as N
         from webauthn_halo2_tpu_torch.plonk import keygen as KG
         from webauthn_halo2_tpu_torch.plonk import prover as PR
@@ -411,7 +558,8 @@ def main() -> int:
     t0 = time.time()
     K.build_all()
     log(f"[build] kernels {', '.join(K.SOURCES)} built in {time.time() - t0:.1f}s "
-        f"(compiler reports: {K.BUILD_DIR}/*.log)")
+        f"(each from the start: {json.dumps({k: round(v, 1) for k, v in K.BUILD_SECONDS.items()})}; "
+        f"compiler reports: {K.BUILD_DIR}/*.log)")
 
     # 2. kernels against their plain versions
     t0 = time.time()
@@ -420,6 +568,11 @@ def main() -> int:
     params = CircuitParams()
     srs = get_srs(params.degree, device=dev)
     rows.update(phase_msm_kernels(dev, gen, srs, COMMIT_BATCH))
+    rows["msm_interior_v1"] = phase_interior_v1(dev, gen, srs)
+    nwin = -(-MS.SCALAR_BITS // MS._default_c(srs.n))
+    rows["ec_add_unsafe"] = phase_ec_add(dev, gen, srs, nwin * COMMIT_BATCH,
+                                         MS._default_lanes(srs.n))
+    rows["mxu_montmul"], mxu_launches = phase_mxu(dev, gen)
     log(f"[kernels] all kernels equal their plain versions ({time.time() - t0:.1f}s)")
 
     # 3. a full k=17 MSM batch: v3 pipeline == serial Pippenger == oracle
@@ -442,11 +595,15 @@ def main() -> int:
         return {"montmul": M.LAUNCHES["montmul"],
                 "ntt_stage_a": N.LAUNCHES["ntt_stage_a"],
                 "ntt_stage_b": N.LAUNCHES["ntt_stage_b"],
-                **MF.LAUNCHES, "serial_bucket_sums": MS.CALLS["window_bucket_sum"]}
+                **MF.LAUNCHES, **E.LAUNCHES, **X.LAUNCHES,
+                "serial_bucket_sums": MS.CALLS["window_bucket_sum"]}
 
-    for table in (M.LAUNCHES, N.LAUNCHES, MF.LAUNCHES, MS.CALLS):
-        for name in table:
-            table[name] = 0
+    def zero_counts():
+        for table in (M.LAUNCHES, N.LAUNCHES, MF.LAUNCHES, E.LAUNCHES, X.LAUNCHES, MS.CALLS):
+            for name in table:
+                table[name] = 0
+
+    zero_counts()
     t0 = time.time()
     pk = api.proving_key(params, device=dev)
     torch.cuda.synchronize()
@@ -494,24 +651,40 @@ def main() -> int:
     launches = counts()
     MF.window_sums = window_sums
 
-    # 7. the same proof on the serial route: byte for byte
-    KG.MSM_ENGINE = MS
-    try:
-        t0 = time.time()
-        serial_calls = MS.CALLS["window_bucket_sum"]
-        serial_proof = prove()
-        serial_calls = MS.CALLS["window_bucket_sum"] - serial_calls
-    finally:
-        KG.MSM_ENGINE = MF
-    log(f"[serial] proof on the serial route in {time.time() - t0:.1f}s "
-        f"({serial_calls} serial bucket sums): identical bytes: "
-        f"{serial_proof == proof}")
+    # 7. the same proof on the serial route: byte for byte, every point add
+    #    through the fused EC add
+    def prove_on(engine):
+        KG.MSM_ENGINE = engine
+        try:
+            zero_counts()
+            t0 = time.time()
+            out = prove()
+            return out, time.time() - t0, counts()
+        finally:
+            KG.MSM_ENGINE = MF
+
+    serial_proof, serial_s, serial = prove_on(MS)
+    log(f"[serial] proof on the serial route in {serial_s:.1f}s: identical bytes: "
+        f"{serial_proof == proof}; launches {json.dumps(serial)}")
     if serial_proof != proof:
         fail("the serial route's proof differs from the v3 route's")
-    if not serial_calls:
-        fail("the serial route never ran the serial bucket sum")
+    for name in ("serial_bucket_sums", "ec_add_unsafe"):
+        if not serial[name]:
+            fail(f"the serial route ran no {name}")
 
-    # 8. counters and the kernels line
+    # 8. the same proof through the v1 driver: byte for byte
+    v1_proof, v1_s, v1 = prove_on(MV)
+    log(f"[v1] proof on the v1 route in {v1_s:.1f}s: identical bytes: "
+        f"{v1_proof == proof}; launches {json.dumps(v1)}")
+    if v1_proof != proof:
+        fail("the v1 route's proof differs from the v3 route's")
+    for name in ("msm_interior", "msm_combine", "ec_add_unsafe"):
+        if not v1[name]:
+            fail(f"the v1 route launched no {name}")
+    if v1["msm_scan"] or v1["serial_bucket_sums"]:
+        fail("the v1 route ran the scan kernel or the serial bucket sum")
+
+    # 9. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {batches}")
@@ -519,21 +692,27 @@ def main() -> int:
         fail("the default route ran the serial bucket sum")
     if max(batches) > COMMIT_BATCH:
         fail(f"a commit batch of {max(batches)} exceeds the {COMMIT_BATCH} checked in phase 2")
+    by_path = {"v3": launches, "serial": serial, "v1": v1,
+               "mxu": {"mxu_montmul": mxu_launches}}
     for name in KERNEL_META:
-        if launches[name] == 0:
-            fail(f"kernel {name} was never launched on the main path")
+        path, counter = KERNEL_PATH.get(name, ("v3", name))
+        if by_path[path][counter] == 0:
+            fail(f"kernel {name} was never launched on its path ({path})")
     kernels = []
     for name, row in rows.items():
+        path, counter = KERNEL_PATH.get(name, ("v3", name))
         t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = row["ops"] / IMAD_PER_S * 1e3
+        t_ops = row["ops"] / row.get("rate", IMAD_PER_S) * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_META[name][0],
-            "replaces": KERNEL_META[name][1], "launches": launches[name],
+            "replaces": KERNEL_META[name][1], "launches": by_path[path][counter],
             "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": row["shape"],
-            "launches_per_proof": per_proof[name],
+            "library_ms": None, "shape": row["shape"], "path": path,
+            "launches_by_path": {p: c.get(counter, 0) for p, c in by_path.items()
+                                 if counter in c},
+            "launches_per_proof": per_proof.get(counter) if path == "v3" else None,
         })
     log(f"[total] {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -39,14 +39,15 @@ def _port_files():
 def test_port_has_the_slice_modules():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for mod in ("fields/limbs.py", "ops/modops.py", "ops/ntt.py", "ops/poly.py",
-                "ops/ec.py", "ops/msm.py", "ops/msm_fused.py", "plonk/domain.py",
+                "ops/ec.py", "ops/msm.py", "ops/msm_fused.py", "ops/msm_v1.py",
+                "ops/mxu_mod.py", "plonk/domain.py",
                 "plonk/srs.py", "plonk/cs.py", "plonk/keygen.py", "plonk/fused.py",
                 "plonk/prover.py", "plonk/verifier.py", "plonk/transcript.py",
                 "utils/keccak.py", "fields/pairing.py", "circuits/ecdsa_circuit.py",
                 "api.py", "convert.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
-        "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu"}
+        "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "ec.cu", "mxu.cu"}
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -5,10 +5,10 @@ lookup and copy constraints) and its public-input circuit, copied here.
 The JAX package takes minutes on this CPU to key and prove them, so its
 outputs under the deterministic `rng` below are stored here: the vk
 transcript digest and the proof bytes. The port must reproduce both byte
-for byte, on the default (v3) commit route and on the serial one, and its
-verifier must accept the JAX proofs. The `slow` test recomputes the stored
-values live from the JAX package and has the JAX verifier accept the
-port's proofs.
+for byte, on the default (v3) commit route, the serial one and the v1
+one, and its verifier must accept the JAX proofs. The `slow` test
+recomputes the stored values live from the JAX package and has the JAX
+verifier accept the port's proofs.
 """
 import functools
 import hashlib
@@ -202,6 +202,27 @@ def test_serial_msm_route_gives_the_same_proof(port_proof, monkeypatch):
     proof = create_proof(pk, advice, instances, rng=_det_rng(JAX_REF[name]["seed"]),
                          device="cpu")
     assert MS.CALLS["window_bucket_sum"] > calls
+    assert proof.hex() == JAX_REF[name]["proof"]
+
+
+@pytest.mark.parametrize("port_proof", ["pub"], indirect=True)
+def test_v1_msm_route_gives_the_same_proof(port_proof, monkeypatch):
+    """Committing through the v1 driver (one MSM at a time, the plain
+    boundary scan of fused adds, the device Horner) gives the same
+    commitments, so the same proof bytes. The public-input circuit keeps
+    it cheap: each of its five MSMs folds about 250 doublings on the
+    device."""
+    from webauthn_halo2_tpu_torch.ops import msm_v1 as V
+    from webauthn_halo2_tpu_torch.plonk import keygen as KG
+
+    name, pk, instances, _ = port_proof
+    _, _, advice, _, _ = CIRCUITS[name](CS)
+    monkeypatch.setattr(KG, "MSM_ENGINE", V)
+    calls = []
+    monkeypatch.setattr(V, "horner", lambda *a, h=V.horner: calls.append(1) or h(*a))
+    proof = create_proof(pk, advice, instances, rng=_det_rng(JAX_REF[name]["seed"]),
+                         device="cpu")
+    assert len(calls) == 5
     assert proof.hex() == JAX_REF[name]["proof"]
 
 

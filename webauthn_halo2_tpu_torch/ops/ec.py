@@ -7,6 +7,11 @@ exactly when all its words are.
 `add` is complete (P == Q, P == -Q and infinities resolved by selects);
 `add_unsafe` handles infinities only, for sums of disjoint subsets of
 distinct base points (Pippenger accumulation).
+
+`add_unsafe_fast` is the one kernel here: on CUDA tensors it launches the
+fused add of csrc/ec.cu (the JAX package's `ec_add_unsafe_pallas`, which it
+takes when WH2_PALLAS=1), on CPU tensors `add_unsafe`, its plain version,
+word for word. It counts its launches in `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -17,7 +22,10 @@ import torch
 
 from ..fields.constants import BN254_B
 from ..fields.limbs import FQ_SPEC, W, FieldSpec
+from . import kernels as K
 from . import modops as M
+
+LAUNCHES = {"ec_add_unsafe": 0}
 
 
 class JPoint(NamedTuple):
@@ -144,10 +152,37 @@ def add_unsafe(curve: CurveSpec, p: JPoint, q: JPoint) -> JPoint:
     return point_select(M.is_zero(f, q.z), p, out)
 
 
+def add_unsafe_cuda(curve: CurveSpec, p: JPoint, q: JPoint) -> JPoint:
+    """The fused add of csrc/ec.cu on CUDA tensors: the six coordinates
+    broadcast to one (8, *batch) shape, which the kernel walks flattened."""
+    coords = (*p, *q)
+    for t in coords:
+        if t.device.type != "cuda":
+            raise ValueError(f"the fused EC add needs CUDA tensors, got {t.device}")
+        if t.dtype != torch.int32 or t.shape[0] != W:
+            raise TypeError("the fused EC add takes (8, *batch) int32 tensors")
+    shape = torch.broadcast_shapes(*(t.shape for t in coords))
+    ins = [t.expand(shape).contiguous() for t in coords]
+    out = JPoint(*(torch.empty(shape, dtype=torch.int32, device=p.x.device)
+                   for _ in range(3)))
+    n = out.x.numel() // W
+    if n == 0:
+        return out
+    f = curve.field
+    rc = K.lib("ec").wh2_ec_add_unsafe(
+        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n,
+        K.modulus_words(f), f.n0, K.stream_ptr(p.x.device))
+    K.check(rc, "fused EC add kernel")
+    LAUNCHES["ec_add_unsafe"] += 1
+    return out
+
+
 def add_unsafe_fast(curve: CurveSpec, p: JPoint, q: JPoint) -> JPoint:
-    """The JAX package's opt-in fused Pallas add is off this path: plain
-    `add_unsafe`."""
-    return add_unsafe(curve, p, q)
+    """`add_unsafe` in one kernel on the card; `add_unsafe` itself on the
+    CPU (decided by where the tensors lie, never by a fallback)."""
+    if p.x.device.type == "cpu":
+        return add_unsafe(curve, p, q)
+    return add_unsafe_cuda(curve, p, q)
 
 
 def is_on_curve(curve: CurveSpec, p: JPoint) -> torch.Tensor:

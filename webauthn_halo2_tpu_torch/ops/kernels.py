@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("montmul", "ntt", "msm")
+SOURCES = ("montmul", "ntt", "msm", "ec", "mxu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -31,6 +31,7 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _U32 = ctypes.c_uint32
+_U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     "wh2_montmul": [_P, _LL, _I, _P, _LL, _I, _P, _LL, _U32P, _U32, _P],
     "wh2_ntt_stage_a": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
@@ -41,6 +42,11 @@ _SIGNATURES = {
                      _U32P, _U32, _P],
     "wh2_msm_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U32P, _U32,
                         _U32P, _P],
+    "wh2_ec_add_unsafe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _U32P,
+                          _U32, _P],
+    "wh2_mxu_montmul": [_P, _P, _P, _LL, _P, _P, _P, _U32P, _U32, _U32,
+                        _U32, _U64, _P],
+    "wh2_mma_tile": [_P, _P, _P, _P],
 }
 
 
@@ -52,6 +58,7 @@ class _Libraries:
 
 
 _STATE = _Libraries()
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -75,12 +82,13 @@ def _so_path(name: str) -> Path:
 
 def build_all() -> float:
     """Compile every missing library (one nvcc per source, all started
-    together) and load them all. Returns the seconds spent."""
+    together) and load them all. Returns the seconds spent; `BUILD_SECONDS`
+    keeps each library's time from the start to its nvcc's exit."""
     if len(_STATE.libs) == len(SOURCES):
         return 0.0
     t0 = time.time()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
+    procs = {}
     for name in SOURCES:
         so = _so_path(name)
         if so.exists():
@@ -88,17 +96,23 @@ def build_all() -> float:
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         log = open(so.with_suffix(".log"), "w")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, so, tmp, log,
-                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        procs[name] = (so, tmp, log,
+                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
     errors = []
-    for name, so, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            errors.append(f"{name}: nvcc exit {rc}\n"
-                          + so.with_suffix(".log").read_text()[-4000:])
-        else:
-            os.replace(tmp, so)
+    while procs:
+        for name, (so, tmp, log, proc) in list(procs.items()):
+            rc = proc.poll()
+            if rc is None:
+                continue
+            BUILD_SECONDS[name] = time.time() - t0
+            del procs[name]
+            log.close()
+            if rc != 0:
+                errors.append(f"{name}: nvcc exit {rc}\n"
+                              + so.with_suffix(".log").read_text()[-4000:])
+            else:
+                os.replace(tmp, so)
+        time.sleep(0.05)
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     for name in SOURCES:

@@ -2,7 +2,9 @@
 
 The port of the JAX package's serial MSM (ops/msm.py), the engine that its
 prover runs with WH2_MSM_IMPL=xla, as torch ops whose every field multiply
-goes through `modops.montmul` (the montmul kernel on the card):
+goes through `modops.montmul` (the montmul kernel on the card) and whose
+every point add of steps 3-4 is `ec.add_unsafe_fast` (the fused add of
+csrc/ec.cu on the card, as WH2_PALLAS=1 makes it in the JAX package):
 
   1. scalars -> canonical words -> c-bit window digits;
   2. per window: sort the digits, gather the points in that order;
@@ -21,7 +23,7 @@ runs on the host with Python ints (as the JAX package's v3 path does),
 since it is a chain of W * c doublings on a handful of points.
 
 PRECONDITION (as in the JAX package): points pairwise distinct, as SRS
-bases are; steps 3-4 use `add_unsafe`. Step 5 uses complete adds.
+bases are; steps 3-4 use unsafe adds. Step 5 uses complete adds.
 
 The prover commits through the v3 pipeline of ops/msm_fused.py; this
 serial engine is its plain reference, and commits take it when

@@ -51,10 +51,11 @@ def _batch_input(cols):
 
 
 # The commit engine, read here and nowhere else: a module with `msm_batch`
-# and `msm`. The serial Pippenger of ops/msm.py (the JAX package's
-# WH2_MSM_IMPL=xla configuration) is its plain reference and gives the same
-# affine points, so the same proof bytes; the checks that compare the two
-# routes set this to it.
+# and `msm`. Two other engines give the same affine points, so the same
+# proof bytes, and the checks that compare routes set this to them: the
+# v1 driver of ops/msm_v1.py (the JAX package's WH2_MSM_V3=0) and the serial
+# Pippenger of ops/msm.py, the plain reference (WH2_MSM_IMPL=xla
+# WH2_PALLAS=1).
 MSM_ENGINE = msm_fused
 
 
