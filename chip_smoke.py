@@ -5,35 +5,47 @@
 
 Phases, one or more lines each:
   1. build the CUDA kernels (webauthn_halo2_tpu_torch/csrc, nvcc, sm_90a),
-     one nvcc per source, all started together;
+     one nvcc per source, all started together, and print each kernel's
+     registers, stack frame and spill bytes from the compiler's report;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, with exact equality of the words: montmul,
      NTT stages A and B, the v3 MSM kernels (interior, scan, combine) at
-     n = 2^17, c = 13, 20 windows x 9 rows, the interior again at the v1
-     route's 20 rows, plus small degenerate MSMs that also meet the host
-     oracle; the fused EC add at the serial route's grow shape with
-     infinities on either side; the int8 tensor-core montmul (one mma tile
-     against a host product first) at (8, 2^19) against its plain version
-     and the montmul kernel, edge words included, driven once through its
-     entry point with the counts from zero;
+     n = 2^17, c = 13, 20 windows x 9 rows (the scan at the segment tails,
+     the only positions it defines), the interior again at the v1 route's
+     20 rows, plus degenerate MSMs that also meet the host oracle: small
+     ones at n = 2^12, and at n = 2^17 columns with long nonzero segments
+     (all ones, 0/1 selectors, 16-bit values, zeros with 8 random tail
+     rows) that also meet the serial engine; the fused EC add at the serial
+     route's grow shape with infinities on either side; the int8
+     tensor-core montmul (one mma tile against a host product first) at
+     (8, 2^19) against its plain version and the montmul kernel, edge words
+     included, driven once through its entry point with the counts from
+     zero;
   3. a full k=17 MSM batch through the v3 pipeline equals the serial
      Pippenger on the card and the host oracle (sum k_i tau^i) G, and the
      v1 driver gives the same points;
   4. keygen of the ECDSA-P256 circuit at the default CircuitParams (k=17);
   5. api.generate_proof on a fixed signature with a deterministic rng, every
-     commitment through the v3 pipeline;
+     commitment through the v3 pipeline, whose batches are recorded;
   6. api.verify accepts it and rejects a tampered copy; the port's verifier
-     accepts results/proof_shplonk_k17.hex (made by the JAX package);
+     accepts results/proof_shplonk_k17.hex (made by the JAX package); then
+     the v3 MSM kernels on the proof's own six commit batches: each timed
+     with its least work on that data (digit 0 excluded), summed over the
+     proof (`proof_ms`, `proof_bound_ms`), the interior also one MSM at a
+     time as the v1 route launches it; the advice batch and the last batch
+     checked against the plain versions;
   7. the same proof with the serial Pippenger as the commit engine
      (plonk/keygen.MSM_ENGINE), every point add through the fused EC add,
      is byte-identical;
   8. the same proof through the v1 driver (interior and combine kernels,
      the plain boundary scan of fused EC adds, the device Horner) is
-     byte-identical, and the scan kernel is not launched;
+     byte-identical, and the scan kernels are not launched;
   9. every kernel of a path launched during that path's run (each run with
-     the counts from zero), and the serial bucket sum did not run on the v3
-     route; a `kernels` JSON line with launches, times, bounds and the plain
-     versions' times.
+     the counts from zero; the proof launched the interior and the combine
+     once a batch, the scan's tile and join kernels once each a batch), and
+     the serial bucket sum did not run on the v3 route; a `kernels` JSON
+     line with launches, times, bounds, the plain versions' times and, for
+     the MSM kernels, their times and bounds over the proof's batches.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ import hashlib
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +72,12 @@ INT8_OPS_PER_S = 1979e12
 # one 8-word CIOS Montgomery multiply: 64 a*b and 64 m*p word products,
 # each a 32x32 -> 64-bit product (two IMADs: low and high half)
 IMAD_PER_MONTMUL = 256
+# a Montgomery square: 28 cross products once, doubled, 8 squares, then the
+# 64 reduction products: 100 word products
+IMAD_PER_MONTSQR = 200
+# a mixed add (Z2 = 1): 8 multiplies and 3 squares; a Jacobian add: 12 and 4
+IMAD_PER_MADD = 8 * IMAD_PER_MONTMUL + 3 * IMAD_PER_MONTSQR
+IMAD_PER_JADD = 12 * IMAD_PER_MONTMUL + 4 * IMAD_PER_MONTSQR
 ELEM_BYTES = 32
 
 
@@ -186,10 +205,65 @@ def _pt_err(a, b) -> int:
     return max(_max_abs_err(x, y) for x, y in zip(a, b))
 
 
-def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False):
-    """The v3 pipeline's three kernels, each against its plain version on
-    the same inputs (exact words: both add in the same order). Returns a
-    row per kernel, the buckets after the scatter, and the window sums."""
+def _least_work(sdig, bnd, seg, buckets, n: int, lanes: int) -> dict:
+    """(bytes, operations) of the least work each v3 MSM kernel needs on
+    this run's data, not what the kernels happen to do; digit 0 contributes
+    nothing to a window sum, so its points are neither read nor added, and
+    an add with an infinite operand is a select, no multiply."""
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+
+    R = sdig.shape[0]
+    nb = buckets.x.shape[-1]
+    pt_bytes = 3 * ELEM_BYTES
+    # Interior: a madd where a step continues its run, digit != 0 only;
+    # every digit read, the index and point of each nonzero step.
+    nz = sdig != 0
+    madds = int(((sdig[:, 1:] == sdig[:, :-1]) & nz[:, 1:]).sum().item())
+    nz_steps = int(nz.sum().item())
+    # Scan: per segment with digit != 0, one add per finite fragment beyond
+    # its first finite one; the nonzero fragments read, each segment's
+    # total written.
+    m2 = seg.shape[1]
+    opens = torch.ones_like(seg, dtype=torch.bool)
+    opens[:, 1:] = seg[:, 1:] != seg[:, :-1]
+    live = seg != 0
+    finite = live & (bnd.z != 0).any(dim=0)
+    gid = (torch.cumsum(opens.reshape(-1).to(torch.int64), 0) - 1)[finite.reshape(-1)]
+    scan_adds = int(finite.sum().item()) - int(torch.unique(gid).numel())
+    tails = int(MS._tail_mask(seg).sum().item())
+    # Combine: sum_b b B_b by running sums, per row up to its top non-empty
+    # bucket t: S_b = S_{b+1} + B_b (an add per non-empty bucket in 1..t
+    # beyond the first) and sum_{b=1..t} S_b (t - 1 adds); no doublings.
+    filled = (buckets.z != 0).any(dim=0)
+    filled[:, 0] = False
+    top = (filled * torch.arange(nb, device=filled.device)).max(dim=-1).values
+    comb_adds = int(((filled.sum(dim=-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum().item())
+    return {
+        "msm_interior": dict(
+            bytes=2 * ELEM_BYTES * n + 4 * R * n + (4 + 2 * ELEM_BYTES) * nz_steps
+            + pt_bytes * R * (nb + 2 * lanes) + 8 * R * lanes,
+            ops=IMAD_PER_MADD * madds, madds=madds),
+        "msm_scan": dict(
+            bytes=pt_bytes * int(live.sum().item()) + 4 * R * m2 + pt_bytes * tails,
+            ops=IMAD_PER_JADD * scan_adds, adds=scan_adds,
+            segments=int(opens.sum().item())),
+        "msm_combine": dict(bytes=pt_bytes * R * (nb + 1), ops=IMAD_PER_JADD * comb_adds),
+    }
+
+
+def _bound_ms(row: dict) -> tuple:
+    t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = row["ops"] / row.get("rate", IMAD_PER_S) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False,
+                check: bool = True, iters: int = 5):
+    """The v3 pipeline's three kernels on one batch, each (with `check`)
+    against its plain version on the same inputs: exact words, the scan's
+    at the segment tails, the only positions it defines. Returns a row per
+    kernel (with `timed`, its ms a launch and its least work), the buckets
+    after the scatter, and the window sums."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
     from webauthn_halo2_tpu_torch.ops import modops as M
     from webauthn_halo2_tpu_torch.ops import msm as MS
@@ -204,58 +278,75 @@ def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False):
     S = n // lanes
     px, py = pts.x.contiguous(), pts.y.contiguous()
     args = (curve, px, py, sdig, order, nb)
-    got = MF.interior_cuda(*args)
-    want = MF.interior_plain(*args)
-    torch.cuda.synchronize()
-    errs = {"msm_interior": max(_pt_err(got[0], want[0]), _pt_err(got[1], want[1]),
-                                _max_abs_err(got[2], want[2]))}
-    buckets, bnd, seg = got
+    rows = {k: dict(err=None) for k in ("msm_interior", "msm_scan", "msm_combine")}
+    buckets, bnd, seg = MF.interior_cuda(*args)
+    if check:
+        want = MF.interior_plain(*args)
+        rows["msm_interior"]["err"] = max(_pt_err(buckets, want[0]), _pt_err(bnd, want[1]),
+                                          _max_abs_err(seg, want[2]))
     merged = MF.scan_cuda(curve, bnd, seg)
-    errs["msm_scan"] = _pt_err(merged, MF.scan_plain(curve, bnd, seg))
+    if check:
+        tails = MS._tail_mask(seg)
+        rows["msm_scan"]["err"] = _pt_err(*(_pts_at(p, tails) for p in (
+            merged, MF.scan_plain(curve, bnd, seg))))
     MF.scatter_tails(buckets, merged, seg)
     wsums = MF.combine_cuda(curve, buckets)
-    errs["msm_combine"] = _pt_err(wsums, MF.combine_plain(curve, buckets))
+    if check:
+        rows["msm_combine"]["err"] = _pt_err(wsums, MF.combine_plain(curve, buckets))
     torch.cuda.synchronize()
-    rows = {k: dict(err=v) for k, v in errs.items()}
     if not timed:
         return rows, buckets, wsums
-    # The least work each function needs on this run's data, not what the
-    # kernels happen to do. Interior: a madd where a step continues its run.
-    madds = int((sdig[:, 1:] == sdig[:, :-1]).sum().item())
-    # Scan: a segmented inclusive scan needs one add per fragment beyond
-    # its segment's first.
-    m2 = seg.shape[1]
-    segments = R + int((seg[:, 1:] != seg[:, :-1]).sum().item())
-    scan_adds = R * m2 - segments
-    # Combine: sum_b b B_b by running sums, per row up to its top non-empty
-    # bucket t: S_b = S_{b+1} + B_b (an add per non-empty bucket in 1..t
-    # beyond the first) and sum_{b=1..t} S_b (t - 1 adds); no doublings.
-    filled = (buckets.z != 0).any(dim=0)
-    filled[:, 0] = False
-    top = (filled * torch.arange(nb, device=filled.device)).max(dim=-1).values
-    comb_adds = int(((filled.sum(dim=-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum().item())
+    work = _least_work(sdig, bnd, seg, buckets, n, lanes)
     G, m = MF._combine_shape(nb)
-    pt_bytes = 3 * ELEM_BYTES
     shape = f"n=2^{n.bit_length() - 1}, c={c}, R={R} ({nwin}x{B}), K={lanes}, S={S}"
-    rows["msm_interior"].update(
-        shape=shape,
-        ms=_events_ms(lambda: MF.interior_cuda(*args), 5),
-        plain_ms=_events_ms(lambda: MF.interior_plain(*args), 1),
-        bytes=2 * ELEM_BYTES * n + 8 * R * n + pt_bytes * R * (nb + 2 * lanes) + 8 * R * lanes,
-        ops=11 * IMAD_PER_MONTMUL * madds)
-    rows["msm_scan"].update(
-        shape=f"R={R}, {m2} fragments, {segments} segments",
-        ms=_events_ms(lambda: MF.scan_cuda(curve, bnd, seg), 10),
-        plain_ms=_events_ms(lambda: MF.scan_plain(curve, bnd, seg), 1),
-        bytes=2 * pt_bytes * R * m2 + 4 * R * m2,
-        ops=16 * IMAD_PER_MONTMUL * scan_adds)
-    rows["msm_combine"].update(
-        shape=f"R={R}, nb={nb}, m={m}, G={G}",
-        ms=_events_ms(lambda: MF.combine_cuda(curve, buckets), 10),
-        plain_ms=_events_ms(lambda: MF.combine_plain(curve, buckets), 1),
-        bytes=pt_bytes * R * (nb + 1),
-        ops=16 * IMAD_PER_MONTMUL * comb_adds)
+    calls = {"msm_interior": lambda: MF.interior_cuda(*args),
+             "msm_scan": lambda: MF.scan_cuda(curve, bnd, seg),
+             "msm_combine": lambda: MF.combine_cuda(curve, buckets)}
+    plains = {"msm_interior": lambda: MF.interior_plain(*args),
+              "msm_scan": lambda: MF.scan_plain(curve, bnd, seg),
+              "msm_combine": lambda: MF.combine_plain(curve, buckets)}
+    shapes = {"msm_interior": f"{shape}, {work['msm_interior']['madds']} nonzero madds",
+              "msm_scan": f"R={R}, {seg.shape[1]} fragments, {work['msm_scan']['segments']} "
+                          f"segments, {work['msm_scan']['adds']} adds of two finite points",
+              "msm_combine": f"R={R}, nb={nb}, m={m}, G={G}"}
+    for name, row in rows.items():
+        row.update(shape=shapes[name], bytes=work[name]["bytes"], ops=work[name]["ops"],
+                   ms=_events_ms(calls[name], iters * (2 if name == "msm_scan" else 1)))
+        if check:
+            row["plain_ms"] = _events_ms(plains[name], 1)
     return rows, buckets, wsums
+
+
+def _pts_at(p, mask):
+    """The points of a JPoint (8, *batch) where `mask` (batch) is true."""
+    from webauthn_halo2_tpu_torch.ops import ec as E
+
+    return E.JPoint(*(t[:, mask] for t in p))
+
+
+def _ptxas_report(text: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel in an
+    `nvcc -Xptxas -v` report."""
+    entries, props, entry, fn = {}, {}, None, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = m.group(1)
+        elif m := re.search(r"Function properties for (\w+)", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            props[fn] = tuple(int(v) for v in m.groups())
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry is not None:
+            entries[entry] = int(m.group(1))
+
+    def name(mangled):  # _Z<len><name>...
+        m = re.match(r"_Z(\d+)", mangled)
+        return mangled[m.end():m.end() + int(m.group(1))] if m else mangled
+
+    return {name(f): dict(registers=r, stack=props.get(f, (0,))[0],
+                          spill_stores=props.get(f, (0, 0))[1],
+                          spill_loads=props.get(f, (0, 0, 0))[2])
+            for f, r in entries.items()}
 
 
 def _tau() -> int:
@@ -281,8 +372,9 @@ def _oracle(ks: list) -> tuple:
 def phase_msm_kernels(dev, gen, srs, batch: int):
     """Phase 2, the v3 MSM kernels: at the main path's shapes (the SRS's
     n = 2^17 Lagrange bases, c = 13, 20 windows x `batch` rows, random
-    scalars), then small degenerate cases, each also against the host
-    oracle."""
+    scalars), then small degenerate cases at n = 2^12, each also against
+    the host oracle, and cases with long nonzero segments at n = 2^17, each
+    also against the host oracle and the serial engine."""
     from webauthn_halo2_tpu_torch.fields.constants import BN254_FR
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
     from webauthn_halo2_tpu_torch.ops import ec as E
@@ -298,6 +390,9 @@ def phase_msm_kernels(dev, gen, srs, batch: int):
         log(f"[kernels] {name} {row['shape']}: max_abs_err={row['err']}")
         if row["err"]:
             fail(f"{name} disagrees with its plain version at the main path's shape")
+    log(f"[kernels] point-major copy of the bases, made at each interior launch "
+        f"(n=2^{n.bit_length() - 1}): "
+        f"{_events_ms(lambda: MF.point_major(srs.g_lag.x, srs.g_lag.y), 20):.4f} ms")
 
     # degenerate cases on the first 2^12 monomial bases
     ns = 1 << 12
@@ -321,7 +416,71 @@ def phase_msm_kernels(dev, gen, srs, batch: int):
         log(f"[kernels] degenerate '{name}' n=2^12 c={cc}: max_abs_err={errs} oracle={ok}")
         if any(errs.values()) or not ok:
             fail(f"v3 MSM kernels wrong on the degenerate case '{name}'")
+
+    # long nonzero segments at the main path's n, as the circuit's columns
+    # hold them, in one batch: segments that span every scan tile of a row
+    rng = random.Random(11)
+    cases = {"all ones": [1] * n,
+             "0/1 selectors": [rng.randrange(2) for _ in range(n)],
+             "16-bit values": [rng.randrange(1 << 16) for _ in range(n)],
+             "zeros, 8 random tail rows": [0] * (n - 8) + [rng.randrange(BN254_FR) for _ in range(8)]}
+    sc = torch.stack([torch.as_tensor(FR_SPEC.encode(ks)) for ks in cases.values()], dim=1).to(dev)
+    crow, _, wsums = _msm_stages(curve, srs.g_mono, sc, c, MF.lanes_for(n))
+    got = MS._host_horner(curve, E.JPoint(*(t.reshape(8, -1, len(cases)) for t in wsums)), c)
+    serial = MS.msm_batch(curve, srs.g_mono, sc, c)
+    errs = {k: v["err"] for k, v in crow.items()}
+    for (name, ks), g, sv in zip(cases.items(), got, serial):
+        ok = g == _oracle(ks) == sv
+        log(f"[kernels] degenerate '{name}' n=2^{n.bit_length() - 1} c={c}: max_abs_err={errs} "
+            f"oracle == serial engine == v3: {ok}")
+        if any(errs.values()) or not ok:
+            fail(f"v3 MSM kernels wrong on the degenerate case '{name}' at n={n}")
     return rows
+
+
+def phase_proof_batches(srs, batches: list, lanes: int):
+    """After the main path: the v3 kernels on the proof's own commit
+    batches (advice, lookup, grand products, quotient pieces, SHPLONK h and
+    W), each timed with its least work; the interior and the scan (and the
+    combine) checked against their plain versions on the advice batch and
+    the last (random-scalar) batch; the interior also at the v1 route's
+    launches, one MSM (20 rows) at a time. Returns per-kernel sums over the
+    proof: (ms, bound ms)."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    curve = E.BN254_CURVE
+    n = srs.n
+    c = MS._default_c(n)
+    sums = {k: [0.0, 0.0] for k in ("msm_interior", "msm_scan", "msm_combine", "msm_interior_v1")}
+    for i, (points, scalars) in enumerate(batches):
+        check = i in (0, len(batches) - 1)
+        rows, _, _ = _msm_stages(curve, points, scalars, c, lanes, timed=True, check=check,
+                                 iters=3)
+        for name, row in rows.items():
+            sums[name][0] += row["ms"]
+            sums[name][1] += _bound_ms(row)[0]
+            if row["err"]:
+                fail(f"{name} disagrees with its plain version on the proof's batch {i}")
+        # row 7: the same interior work, one MSM at a time
+        B = scalars.shape[1]
+        digits = MS.scalar_digits(M.from_mont(FR_SPEC, scalars), c)
+        px, py = points.x.contiguous(), points.y.contiguous()
+        for b in range(B):
+            sdig, order = MF.sorted_stream(digits[:, b], lanes)
+            sums["msm_interior_v1"][0] += _events_ms(
+                lambda: MF.interior_cuda(curve, px, py, sdig, order, 1 << c), 3)
+        sums["msm_interior_v1"][1] += _bound_ms(rows["msm_interior"])[0]
+        log(f"[proof batches] batch {i}: B={B} "
+            + "; ".join(f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {_bound_ms(r)[0]:.4f} ms"
+                        + (f", max_abs_err={r['err']}" if check else "")
+                        for k, r in rows.items()))
+    log("[proof batches] over the proof: " + json.dumps(
+        {k: {"ms": v[0], "bound_ms": v[1]} for k, v in sums.items()}))
+    return sums
 
 
 def phase_interior_v1(dev, gen, srs):
@@ -384,7 +543,7 @@ def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
     return dict(err=err, shape=shape,
                 ms=_events_ms(lambda: E.add_unsafe_cuda(curve, p, q), 20),
                 plain_ms=_events_ms(lambda: E.add_unsafe(curve, p, q), 3),
-                bytes=9 * ELEM_BYTES * n, ops=16 * IMAD_PER_MONTMUL * adds)
+                bytes=9 * ELEM_BYTES * n, ops=IMAD_PER_JADD * adds)
 
 
 def phase_mxu(dev, gen, logn: int = 19):
@@ -560,6 +719,10 @@ def main() -> int:
     log(f"[build] kernels {', '.join(K.SOURCES)} built in {time.time() - t0:.1f}s "
         f"(each from the start: {json.dumps({k: round(v, 1) for k, v in K.BUILD_SECONDS.items()})}; "
         f"compiler reports: {K.BUILD_DIR}/*.log)")
+    for name in K.SOURCES:
+        report = K._so_path(name).with_suffix(".log")
+        if report.exists():
+            log(f"[build] ptxas {name}.cu: {json.dumps(_ptxas_report(report.read_text()))}")
 
     # 2. kernels against their plain versions
     t0 = time.time()
@@ -580,13 +743,14 @@ def main() -> int:
     phase_msm_batch(dev, gen, srs, COMMIT_BATCH)
     log(f"[msm] done ({time.time() - t0:.1f}s)")
 
-    # 4-6: the main path, with the launch counters from zero; the batch
-    # sizes that reach the v3 pipeline are recorded on the way
+    # 4-6: the main path, with the launch counters from zero; the batches
+    # that reach the v3 pipeline are recorded on the way (bases and a copy
+    # of the scalars)
     batches = []
     window_sums = MF.window_sums
 
     def recording_window_sums(curve, points, scalars, c, lanes):
-        batches.append(scalars.shape[1])
+        batches.append((points, scalars.clone()))
         return window_sums(curve, points, scalars, c, lanes)
 
     MF.window_sums = recording_window_sums
@@ -624,6 +788,7 @@ def main() -> int:
                                   rng=_det_rng(b"chip_smoke"))
 
     after_keygen = counts()
+    keygen_batches = len(batches)
     t0 = time.time()
     proof = prove()
     prove_s = time.time() - t0
@@ -650,6 +815,15 @@ def main() -> int:
         fail("the port's verifier rejected the JAX package's k=17 proof")
     launches = counts()
     MF.window_sums = window_sums
+    sizes = [sc.shape[1] for _, sc in batches]
+
+    # the v3 kernels on the proof's own commit batches
+    t0 = time.time()
+    proof_sums = phase_proof_batches(srs, batches[keygen_batches:], MF.lanes_for(srs.n))
+    for name, (ms, bound) in proof_sums.items():
+        rows[name].update(proof_ms=ms, proof_bound_ms=bound)
+    log(f"[proof batches] done ({time.time() - t0:.1f}s)")
+    del batches
 
     # 7. the same proof on the serial route: byte for byte, every point add
     #    through the fused EC add
@@ -687,11 +861,16 @@ def main() -> int:
     # 9. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
-        f"commit batches {batches}")
+        f"commit batches {sizes}")
     if launches["serial_bucket_sums"]:
         fail("the default route ran the serial bucket sum")
-    if max(batches) > COMMIT_BATCH:
-        fail(f"a commit batch of {max(batches)} exceeds the {COMMIT_BATCH} checked in phase 2")
+    # one interior, one combine and two scan launches (tiles, join) a batch
+    n_proof = len(sizes) - keygen_batches
+    want = {"msm_interior": n_proof, "msm_combine": n_proof, "msm_scan": 2 * n_proof}
+    if any(per_proof[k] != v for k, v in want.items()):
+        fail(f"the proof's v3 launches {per_proof} are not {want} for {n_proof} batches")
+    if max(sizes) > COMMIT_BATCH:
+        fail(f"a commit batch of {max(sizes)} exceeds the {COMMIT_BATCH} checked in phase 2")
     by_path = {"v3": launches, "serial": serial, "v1": v1,
                "mxu": {"mxu_montmul": mxu_launches}}
     for name in KERNEL_META:
@@ -701,15 +880,14 @@ def main() -> int:
     kernels = []
     for name, row in rows.items():
         path, counter = KERNEL_PATH.get(name, ("v3", name))
-        t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = row["ops"] / row.get("rate", IMAD_PER_S) * 1e3
+        bound, bound_by = _bound_ms(row)
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_META[name][0],
             "replaces": KERNEL_META[name][1], "launches": by_path[path][counter],
             "max_abs_err": row["err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": row["shape"], "path": path,
+            "plain_ms": row["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "proof_ms": row.get("proof_ms"),
+            "proof_bound_ms": row.get("proof_bound_ms"), "shape": row["shape"], "path": path,
             "launches_by_path": {p: c.get(counter, 0) for p, c in by_path.items()
                                  if counter in c},
             "launches_per_proof": per_proof.get(counter) if path == "v3" else None,

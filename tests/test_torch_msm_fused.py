@@ -13,8 +13,19 @@ versions word for word.
   * The plain pipeline against the JAX package's stored MSM outputs and the
     host oracle of tests/test_torch_msm.py, on degenerate scalars, and at
     window sizes whose combine has m = 1, 2 and m > 2 buckets per chunk.
+  * The plain pipeline on sparse scalars as the circuit's columns hold them
+    (zeros with a few random tail rows, 0/1 selectors, 16-bit values, all
+    ones) against the host oracle and the serial engine, with scan tiles
+    narrow enough that segments cross several of them.
+  * The plain interior leaves bucket 0 and every digit-0 fragment at
+    infinity, and keeps the segment ids and everything else word-equal to
+    the serial engine's `_lane_runs`.
+  * The plain scan's segment totals equal the Hillis-Steele totals of
+    `msm._prefix_scan_points` as points, on a row whose long segment spans
+    every tile of the kernel's size.
   * The plain combine against the serial engine's suffix sums.
-  * The kernels' library name changes when a shared header changes.
+  * The kernels' library name changes when a shared header changes; the
+    scan's tiling in Python is the kernel's.
 The JAX Pallas kernels themselves take minutes per tiny MSM in interpret
 mode, so they are held here through their bodies and the stored XLA MSM.
 """
@@ -241,3 +252,111 @@ def test_library_digest_covers_every_shared_header(tmp_path, monkeypatch):
     with open(csrc / "field.cuh", "a") as f:
         f.write("\n// edited\n")
     assert all(after[name] != K._so_path(name) for name in K.SOURCES)
+
+
+def _sparse_cases(n: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+
+    def rnd():
+        return int.from_bytes(rng.bytes(32), "little") % BN254_FR
+
+    return {"zeros, 8 random tail rows": [0] * (n - 8) + [rnd() for _ in range(8)],
+            "0/1 selectors": [int(v) for v in rng.integers(0, 2, n)],
+            "16-bit values": [int(v) for v in rng.integers(0, 1 << 16, n)],
+            "all ones": [1] * n}
+
+
+@pytest.mark.parametrize("chunk, threads", [(2, 4), (4, 2)])
+def test_sparse_scalars_match_oracle_and_serial(chunk, threads, monkeypatch):
+    """The advice, selector and lookup columns of the circuit are mostly
+    digit 0 with long runs of one digit. Scan tiles of 8 fragments (the
+    32 fragments of a row cut into 4 tiles, two ways) make those runs
+    cross every tile of a row."""
+    monkeypatch.setattr(MF, "SCAN_CHUNK", chunk)
+    monkeypatch.setattr(MF, "SCAN_THREADS", threads)
+    monkeypatch.setattr(MF, "SCAN_TILE", chunk * threads)
+    n = 1 << 8
+    g, _ = _inputs(8)
+    pts = convert.point_from_jax(*g, device="cpu")
+    cases = _sparse_cases(n, chunk)
+    sc = torch.stack([torch.as_tensor(FR_SPEC.encode(ks)) for ks in cases.values()], dim=1)
+    got = MF.msm_batch(CURVE, pts, sc)
+    assert got == [_oracle(ks) for ks in cases.values()]
+    assert got == MS.msm_batch(CURVE, pts, sc)
+
+
+def test_interior_plain_skips_digit_zero():
+    n, c = 1 << 8, 6
+    g, scalars = _inputs(8)
+    pts = convert.point_from_jax(*g, device="cpu")
+    cols = [scalars[0], _sparse_cases(n, 3)["zeros, 8 random tail rows"]]
+    digits = MS.scalar_digits(torch.stack(
+        [torch.as_tensor(FR_SPEC.encode(ks, mont=False)) for ks in cols], dim=1), c)
+    R = digits.shape[0] * 2
+    lanes = MF.lanes_for(n)
+    sdig, order = MF.sorted_stream(digits.reshape(R, n), lanes)
+    buckets, bnd, seg = MF.interior_plain(CURVE, pts.x, pts.y, sdig, order, 1 << c)
+
+    # the serial engine's run accumulation on the same stream, digit-0
+    # points included
+    one = E.infinity((R, lanes), CURVE).x
+    idx = order.to(torch.int64)
+    ref_b, ref_f, ref_seg = MS._lane_runs(
+        CURVE, lambda t: (sdig[:, t], E.JPoint(pts.x[:, idx[:, t]], pts.y[:, idx[:, t]], one)),
+        n // lanes, 1 << c, lambda acc, pt: E.add_unsafe(CURVE, acc, pt))
+    assert torch.equal(seg, ref_seg)
+    zero = seg == 0
+    assert zero.any() and (~zero).any()
+    inf = E.infinity((R, 2 * lanes), CURVE)
+    for got, ref, i in zip(bnd, ref_f, inf):
+        assert torch.equal(got[:, zero], i[:, zero])
+        assert torch.equal(got[:, ~zero], ref[:, ~zero])
+    assert not (ref_f.z[:, zero] != 0).sum() == 0  # the reference did add digit-0 points
+    for got, ref in zip(buckets, ref_b):
+        assert torch.equal(got[..., 1:], ref[..., 1:1 << c])
+    assert torch.equal(buckets.z[..., 0], torch.zeros_like(buckets.z[..., 0]))
+
+
+def test_scan_plain_totals_equal_hillis_steele_totals():
+    """Row 0: digit 0, then digit 1 over more than two tiles of the
+    kernel's 512 fragments (some of its fragments infinite, as a lane's
+    first fragment is when the lane holds one run), then short segments.
+    Row 1: short segments throughout. At every tail the plain scan gives
+    the segment total of the serial engine's scan (infinity for digit 0)."""
+    M = 3 * MF.SCAN_TILE
+    g, _ = _inputs(12)
+    frags = convert.point_from_jax(*g, device="cpu")
+    rng = np.random.default_rng(12)
+    row0 = [0] * 100 + [1] * (M - 300) + sorted(int(v) for v in rng.integers(2, 60, 200))
+    row1 = sorted(int(v) for v in rng.integers(0, 900, M))
+    seg = torch.tensor([row0, row1], dtype=torch.int32)
+    z = frags.z[:, :2 * M].clone()
+    z[:, rng.integers(0, 2 * M, 64)] = 0
+    bnd = E.JPoint(frags.x[:, :2 * M].reshape(W, 2, M), frags.y[:, :2 * M].reshape(W, 2, M),
+                   z.reshape(W, 2, M))
+    tails = MS._tail_mask(seg)
+    got = MF.scan_plain(CURVE, bnd, seg)
+    ref = MS._prefix_scan_points(CURVE, bnd, seg)
+    got_t = E.to_affine_ints(CURVE, E.JPoint(*(t[:, tails] for t in got)))
+    ref_t = E.to_affine_ints(CURVE, E.JPoint(*(t[:, tails] for t in ref)))
+    live = (seg[tails] != 0).tolist()
+    assert [r if keep else None for r, keep in zip(ref_t, live)] == got_t
+    assert sum(live) > 100 and not all(live)
+
+
+def test_point_major_bases_hold_x_then_y():
+    g, _ = _inputs(6)
+    pts = convert.point_from_jax(*g, device="cpu")
+    pm = MF.point_major(pts.x, pts.y)
+    assert pm.shape == (64, 2 * W) and pm.is_contiguous() and pm.dtype == torch.int32
+    assert torch.equal(pm[:, :W], pts.x.t()) and torch.equal(pm[:, W:], pts.y.t())
+
+
+def test_scan_tiling_is_the_kernels():
+    src = (K.CSRC / "msm.cu").read_text()
+    assert f"#define SCAN_THREADS {MF.SCAN_THREADS}\n" in src
+    assert f"#define SCAN_CHUNK {MF.SCAN_CHUNK}\n" in src
+    assert MF.SCAN_TILE == MF.SCAN_CHUNK * MF.SCAN_THREADS
+    # a one-MSM batch at k = 17 (20 rows of 2 K = 4096 fragments) fills the
+    # card's 132 SMs with scan blocks
+    assert 20 * -(-2 * MF.lanes_for(1 << 17) // MF.SCAN_TILE) >= 132

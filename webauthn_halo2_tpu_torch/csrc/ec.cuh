@@ -64,18 +64,19 @@ __device__ __forceinline__ void pt_store(uint32_t* x, uint32_t* y, uint32_t* z, 
 }
 
 // p + (x2, y2) with Z2 = 1; p finite and not +-(x2, y2). The words of
-// ops/ec.py `add_unsafe` with Z2 = one, in 11 multiplies instead of 16.
+// ops/ec.py `add_unsafe` with Z2 = one, in 11 multiplies instead of 16, three
+// of them squares (fe_sqr gives the words of fe_montmul(a, a)).
 __device__ __forceinline__ Pt ec_madd(const Pt& p, const Fe& x2, const Fe& y2, const Modulus& m) {
-  Fe z1z1 = fe_montmul(p.z, p.z, m);
+  Fe z1z1 = fe_sqr(p.z, m);
   Fe u2 = fe_montmul(x2, z1z1, m);
   Fe s2 = fe_montmul(y2, fe_montmul(p.z, z1z1, m), m);
   Fe h = fe_sub(u2, p.x, m);
   Fe r = fe_sub(s2, p.y, m);
-  Fe hh = fe_montmul(h, h, m);
+  Fe hh = fe_sqr(h, m);
   Fe hhh = fe_montmul(h, hh, m);
   Fe v = fe_montmul(p.x, hh, m);
   Pt o;
-  o.x = fe_sub(fe_sub(fe_montmul(r, r, m), hhh, m), fe_dbl(v, m), m);
+  o.x = fe_sub(fe_sub(fe_sqr(r, m), hhh, m), fe_dbl(v, m), m);
   o.y = fe_sub(fe_montmul(r, fe_sub(v, o.x, m), m), fe_montmul(p.y, hhh, m), m);
   o.z = fe_montmul(p.z, h, m);
   return o;

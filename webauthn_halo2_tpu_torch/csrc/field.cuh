@@ -113,3 +113,64 @@ __device__ __forceinline__ Fe fe_montmul(const Fe& a, const Fe& b, const Modulus
   for (int i = 0; i < NW; ++i) r.w[i] = t[i];
   return fe_reduce_once(r, m);
 }
+
+// Montgomery square: a * a * 2^-256 mod p. The 28 cross products a_i a_j
+// (i < j) are computed once and doubled, the 8 squares a_i^2 added, then
+// eight reduction rounds run on the 16-word product (separated operand
+// scanning): 100 word products against the CIOS multiply's 128. Both land
+// in [0, p), so the words equal fe_montmul(a, a, m).
+__device__ __forceinline__ Fe fe_sqr(const Fe& a, const Modulus& m) {
+  uint32_t t[2 * NW];
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < NW - 1; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < NW; ++j) {
+      uint64_t v = (uint64_t)a.w[i] * a.w[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)v;
+      c = v >> 32;
+    }
+    t[i + NW] = (uint32_t)c;
+  }
+  // twice the cross sum (below a^2 < 2^508, so no bit leaves word 15)
+  uint32_t top = 0;
+#pragma unroll
+  for (int i = 0; i < 2 * NW; ++i) {
+    const uint32_t w = t[i];
+    t[i] = (w << 1) | top;
+    top = w >> 31;
+  }
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    uint64_t v = (uint64_t)a.w[i] * a.w[i] + t[2 * i] + c;
+    t[2 * i] = (uint32_t)v;
+    v = (uint64_t)t[2 * i + 1] + (v >> 32);
+    t[2 * i + 1] = (uint32_t)v;
+    c = v >> 32;
+  }
+  // reduction: round i clears word i; hc carries into word i + NW + 1.
+  // a^2 + M p < p^2 + 2^256 p < 2^512, so the last carry is 0 and the
+  // result, the top eight words, is below 2p.
+  uint32_t hc = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint32_t mq = t[i] * m.n0;
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      const uint64_t v = (uint64_t)mq * m.p[j] + t[i + j] + c;
+      t[i + j] = (uint32_t)v;
+      c = v >> 32;
+    }
+    const uint64_t v = (uint64_t)t[i + NW] + c + hc;
+    t[i + NW] = (uint32_t)v;
+    hc = (uint32_t)(v >> 32);
+  }
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) r.w[i] = t[NW + i];
+  return fe_reduce_once(r, m);
+}

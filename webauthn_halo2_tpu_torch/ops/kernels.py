@@ -36,10 +36,10 @@ _SIGNATURES = {
     "wh2_montmul": [_P, _LL, _I, _P, _LL, _I, _P, _LL, _U32P, _U32, _P],
     "wh2_ntt_stage_a": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
     "wh2_ntt_stage_b": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
-    "wh2_msm_interior": [_P, _P, _LL, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                         _P, _P, _P, _P, _U32P, _U32, _U32P, _P],
-    "wh2_msm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                     _U32P, _U32, _P],
+    "wh2_msm_interior": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _P, _U32P, _U32, _U32P, _P],
+    "wh2_msm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32P,
+                     _U32, _U32P, _P],
     "wh2_msm_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U32P, _U32,
                         _U32P, _P],
     "wh2_ec_add_unsafe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _U32P,

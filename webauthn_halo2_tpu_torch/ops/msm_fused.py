@@ -13,10 +13,28 @@ of MSM b:
      closed interior runs go straight into buckets[row, digit], each lane's
      first run and final accumulator into the boundary fragments
      [A_0, B_0, A_1, B_1, ...] with their digits;
-  4. the scan kernel: a segmented inclusive scan of the 2K fragments;
-  5. the scatter of each segment's tail (its total) into its bucket;
+  4. the scan kernels: a segmented reduction of the 2K fragments, each
+     segment's total at its last fragment (its tail);
+  5. the scatter of each segment's tail into its bucket;
   6. the combine kernel: sum_b b * B_b per row over an (m, G) chunking;
   7. the (R,) window sums to the host, and the Horner fold on host ints.
+
+The window sums are those of the JAX pipeline, word for word. What steps
+3 and 4 return differs in two ways:
+  * Points whose digit is 0 contribute nothing: bucket 0, and every
+    fragment labelled with digit 0, hold infinity. The combine never reads
+    bucket 0 (as in the JAX `_combine_kernel`): B_0 enters only chunk 0's
+    total T_0, T_0 only the suffix E'_0, the window sum takes
+    m * sum_{g >= 1} E'_g, and each weighted sum W_g adds run_i for i >= 1
+    only. The segment ids are the JAX ids, and every digit != 0 gets the
+    same adds in the same order, so its buckets and fragments are the same
+    words.
+  * The scan returns segment totals, not an inclusive scan: at the tail of
+    each segment with a nonzero digit its total, at a digit-0 tail
+    infinity; other positions are unspecified, and `scatter_tails` reads
+    none of them. The adds associate otherwise than the serial engine's
+    Hillis-Steele scan, so a total may be another Jacobian representative
+    of the same point.
 
 Each kernel's wrapper sits beside its plain PyTorch version of the same
 function, word for word, and counts its launches in `LAUNCHES`. The
@@ -40,6 +58,11 @@ from .ec import CurveSpec, JPoint
 
 DEFAULT_K_LANES = 2048
 COMBINE_G = 512
+# the scan's tiling (csrc/msm.cu SCAN_CHUNK, SCAN_THREADS): a tile of
+# SCAN_TILE fragments a block
+SCAN_CHUNK = 4
+SCAN_THREADS = 128
+SCAN_TILE = SCAN_CHUNK * SCAN_THREADS
 
 LAUNCHES = {"msm_interior": 0, "msm_scan": 0, "msm_combine": 0}
 
@@ -86,15 +109,20 @@ def interior_plain(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
     """Plain version of the interior kernel: px/py (8, n) affine bases,
     sdig/order (R, S, K). Returns (buckets JPoint (8, R, nb) with the closed
     interior runs and infinity elsewhere, fragments JPoint (8, R, 2K), their
-    digits (R, 2K) int32). The step loop is msm._lane_runs; the kernel's
-    mixed add gives the words of `add_unsafe` with Z2 = one."""
+    digits (R, 2K) int32). The step loop is msm._lane_runs with a digit-0
+    point taken as infinity, so bucket 0 and every digit-0 fragment are
+    infinity; the kernel's mixed add gives the words of `add_unsafe` with
+    Z2 = one."""
     R, S, Kl = sdig.shape
-    one = M.one_mont(curve.field, px.device, 3).expand(W, R, Kl)
+    dev = px.device
+    one = M.one_mont(curve.field, dev, 3).expand(W, R, Kl)
+    inf = E.infinity((R, Kl), curve, dev)
     idx = order.to(torch.int64)
 
     def step(t):
         i = idx[:, t]
-        return sdig[:, t], JPoint(px[:, i], py[:, i], one)
+        d = sdig[:, t]
+        return d, E.point_select(d == 0, inf, JPoint(px[:, i], py[:, i], one))
 
     buckets, bnd, seg = MS._lane_runs(
         curve, step, S, nb, lambda acc, pt: E.add_unsafe(curve, acc, pt))
@@ -102,14 +130,22 @@ def interior_plain(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
     return buckets, bnd, seg
 
 
+def point_major(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """(8, n) affine x and y -> the (n, 16) point-major words the interior
+    kernel gathers from: x then y, 64 B a point, four 16-byte loads."""
+    return torch.cat([px, py]).t().contiguous()
+
+
 def interior_cuda(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
                   sdig: torch.Tensor, order: torch.Tensor, nb: int):
     """The interior kernel of csrc/msm.cu; the same outputs as
-    `interior_plain`."""
+    `interior_plain`. The point-major copy of the bases is made here, at
+    each launch: one transposing copy of 8 MB at n = 2^17, held by no
+    cache."""
     _check_cuda("msm interior", px, py, sdig, order)
     R, S, Kl = sdig.shape
-    n = px.shape[1]
     dev = px.device
+    pts = point_major(px, py)
     inf = E.infinity((R, nb), curve, dev)
     buckets = JPoint(*(c.contiguous() for c in inf))
     bnd = JPoint(*(torch.empty((W, R, 2 * Kl), dtype=torch.int32, device=dev)
@@ -117,10 +153,10 @@ def interior_cuda(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
     seg = torch.empty((R, 2 * Kl), dtype=torch.int32, device=dev)
     f = curve.field
     rc = K.lib("msm").wh2_msm_interior(
-        px.data_ptr(), py.data_ptr(), n, sdig.data_ptr(), order.data_ptr(),
-        R, S, Kl, nb, *(c.data_ptr() for c in buckets),
-        *(c.data_ptr() for c in bnd), seg.data_ptr(), K.modulus_words(f),
-        f.n0, K.one_words(f), K.stream_ptr(dev))
+        pts.data_ptr(), sdig.data_ptr(), order.data_ptr(), R, S, Kl, nb,
+        *(c.data_ptr() for c in buckets), *(c.data_ptr() for c in bnd),
+        seg.data_ptr(), K.modulus_words(f), f.n0, K.one_words(f),
+        K.stream_ptr(dev))
     K.check(rc, "msm interior kernel")
     LAUNCHES["msm_interior"] += 1
     return buckets, bnd, seg
@@ -132,28 +168,106 @@ def interior(curve, px, py, sdig, order, nb):
     return interior_cuda(curve, px, py, sdig, order, nb)
 
 
-# --- scan: the boundary fragments ---------------------------------------
+# --- scan: segment totals of the boundary fragments -----------------------
 
 def scan_plain(curve: CurveSpec, bnd: JPoint, seg: torch.Tensor) -> JPoint:
-    """Plain version of the scan kernel: the serial engine's segmented
-    Hillis-Steele scan (the same adds in the same order)."""
-    return MS._prefix_scan_points(curve, bnd, seg)
+    """Plain version of the scan kernels: (8, R, M) fragments, (R, M)
+    digits, nondecreasing along a row -> at each segment's tail its total
+    (infinity for digit 0); other positions unspecified.
+
+    The same adds in the same order as csrc/msm.cu, level by level: tiles
+    of SCAN_TILE fragments, each cut into SCAN_THREADS chunks of SCAN_CHUNK;
+    (1) a left fold of each chunk, restarting at every digit change; (2) a
+    segmented Hillis-Steele scan of the chunks' tail partials within each
+    tile, whose value for the chunk before is added in front of a chunk's
+    head segment where that closes (every tile's last fragment counts as a
+    tail); (3) a tile's first segment that continues from the tile before
+    gets the left fold of its earlier tiles' tile-end totals in front."""
+    R, Mr = seg.shape
+    C = SCAN_CHUNK
+    nT = -(-Mr // SCAN_TILE)
+    # a row of one tile needs only its own chunks: the kernel's threads
+    # past them never reach the ones before
+    NT = SCAN_THREADS if nT > 1 else -(-Mr // C)
+    T = C * NT
+    pad = nT * T - Mr
+    dev = seg.device
+
+    def add(a, b):
+        return E.add_unsafe(curve, a, b)
+
+    # pad to whole tiles with infinities of digit -1, which no real digit
+    # equals
+    inf = E.infinity((R, pad), curve, dev)
+    f = JPoint(*(torch.cat([c, i], dim=-1) for c, i in zip(bnd, inf)))
+    sg = torch.cat([seg, torch.full((R, pad), -1, dtype=seg.dtype, device=dev)], dim=1)
+    tiles = sg.reshape(R, nT, T)
+    nxt = torch.cat([tiles[..., 1:], torch.full_like(tiles[..., :1], -1)], dim=-1)
+    tail = (nxt != tiles).reshape(R, nT * NT, C)
+
+    # 1) left folds of the chunks
+    ch = sg.reshape(R, nT * NT, C)
+    fc = JPoint(*(c.reshape(W, R, nT * NT, C) for c in f))
+    folds = [MS._pt_cols(fc, 0)]
+    for j in range(1, C):
+        fj = MS._pt_cols(fc, j)
+        folds.append(E.point_select(ch[..., j] == ch[..., j - 1], add(folds[-1], fj), fj))
+    s = JPoint(*(torch.stack(cs, dim=-1) for cs in zip(*folds)))
+
+    # 2) segmented Hillis-Steele scan of the chunk tail partials in a tile
+    dt = ch[..., C - 1].reshape(R, nT, NT)
+    inc = JPoint(*(c.reshape(W, R, nT, NT) for c in folds[-1]))
+    lane = torch.arange(NT, device=dev)
+    d = 1
+    while d < NT:
+        prev = JPoint(*(torch.roll(c, d, dims=-1) for c in inc))
+        ok = (lane >= d) & (dt == torch.roll(dt, d, dims=-1))
+        inc = E.point_select(ok, add(prev, inc), inc)
+        d *= 2
+    before = JPoint(*(torch.roll(c, 1, dims=-1).reshape(W, R, nT * NT, 1)
+                      .expand(W, R, nT * NT, C) for c in inc))
+    carried = ((lane >= 1) & (ch[..., 0].reshape(R, nT, NT)
+                              == torch.roll(dt, 1, dims=-1))).reshape(R, nT * NT, 1)
+    use = carried & (ch == ch[..., :1]) & tail
+    out = E.point_select(use, add(before, s), s)
+
+    # 3) segments that cross tiles, in tile order: `chain` is the total so
+    # far of the segment open at the end of the tile before
+    out = JPoint(*(c.reshape(W, R, nT, T) for c in out))
+    if nT > 1:
+        ends = JPoint(*(c[..., T - 1].clone() for c in out))  # (8, R, nT)
+        first = torch.argmax(tail.reshape(R, nT, T).to(torch.int32), dim=-1)
+        rows = torch.arange(R, device=dev)
+        chain = MS._pt_cols(ends, 0)
+        for t in range(1, nT):
+            cross = tiles[:, t, 0] == tiles[:, t - 1, T - 1]
+            at = first[:, t]
+            mine = JPoint(*(c[:, rows, t, at] for c in out))
+            for c, v in zip(out, E.point_select(cross, add(chain, mine), mine)):
+                c[:, rows, t, at] = v
+            e = MS._pt_cols(ends, t)
+            chain = E.point_select(cross & (at == T - 1), add(chain, e), e)
+    out = JPoint(*(c.reshape(W, R, nT * T)[..., :Mr] for c in out))
+    return E.point_select(seg == 0, E.infinity((R, Mr), curve, dev), out)
 
 
 def scan_cuda(curve: CurveSpec, bnd: JPoint, seg: torch.Tensor) -> JPoint:
-    """The scan kernel of csrc/msm.cu on (8, R, m) fragments, (R, m) ids."""
+    """The scan kernels of csrc/msm.cu on (8, R, M) fragments, (R, M)
+    digits: the tile kernel, and the join kernel where a row has more than
+    one tile, each launch counted. The same tails as `scan_plain`."""
     bnd = JPoint(*(c.contiguous() for c in bnd))
     _check_cuda("msm scan", *bnd, seg)
     R, m = seg.shape
+    tiles = -(-m // SCAN_TILE)
     out = JPoint(*(torch.empty_like(c) for c in bnd))
-    tmp = JPoint(*(torch.empty_like(c) for c in bnd))
+    head_tail = torch.empty((R, tiles), dtype=torch.int32, device=seg.device)
     f = curve.field
     rc = K.lib("msm").wh2_msm_scan(
         *(c.data_ptr() for c in bnd), *(c.data_ptr() for c in out),
-        *(c.data_ptr() for c in tmp), seg.data_ptr(), R, m,
-        K.modulus_words(f), f.n0, K.stream_ptr(seg.device))
-    K.check(rc, "msm scan kernel")
-    LAUNCHES["msm_scan"] += 1
+        seg.data_ptr(), head_tail.data_ptr(), R, m, SCAN_CHUNK, SCAN_THREADS,
+        K.modulus_words(f), f.n0, K.one_words(f), K.stream_ptr(seg.device))
+    K.check(rc, "msm scan kernels")
+    LAUNCHES["msm_scan"] += 1 + (tiles > 1)
     return out
 
 
