@@ -8,32 +8,42 @@ Phases, one or more lines each:
      one nvcc per source, all started together, and print each kernel's
      registers, stack frame and spill bytes from the compiler's report;
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes of the main path, with exact equality of the words: montmul,
-     NTT stages A and B, the v3 MSM kernels (interior, scan, combine) at
-     n = 2^17, c = 13, 20 windows x 9 rows (the scan at the segment tails,
-     the only positions it defines), the interior again at the v1 route's
-     20 rows, plus degenerate MSMs that also meet the host oracle: small
-     ones at n = 2^12, and at n = 2^17 columns with long nonzero segments
-     (all ones, 0/1 selectors, 16-bit values, zeros with 8 random tail
-     rows) that also meet the serial engine; the fused EC add at the serial
-     route's grow shape with infinities on either side; the int8
-     tensor-core montmul (one mma tile against a host product first) at
-     (8, 2^19) against its plain version and the montmul kernel, edge words
-     included, driven once through its entry point with the counts from
-     zero;
+     shapes of the main path, with exact equality of the words: montmul
+     (random words at 2^17 and 2^19, edge words in Fr and Fq, a broadcast
+     (8, 1) operand on either side, slices of a stacked (8, 3, n) tensor,
+     ragged sizes; then its warm and cold times at (8, 2^19) from CUDA
+     graph replays, with the SM clock and power draw; every other time is
+     from CUDA events over launches from Python: `timed_by`), NTT stages A
+     and B, the v3 MSM kernels (interior, scan, combine) at n = 2^17,
+     c = 13, 20 windows x 9 rows (the scan at the segment tails, the only
+     positions it defines), the three again at the
+     v1 route's 20 rows, the combine on mostly empty buckets (one row with
+     one bucket, one with none) also against the host sum, plus degenerate
+     MSMs that also meet the host oracle: small ones at n = 2^12, and at
+     n = 2^17 columns with long nonzero segments (all ones, 0/1 selectors,
+     16-bit values, zeros with 8 random tail rows) that also meet the
+     serial engine; the fused EC add at the serial route's grow shape with
+     infinities on either side; the int8 tensor-core montmul (one mma tile
+     against a host product first) at (8, 2^19) against its plain version
+     and the montmul kernel, edge words included, driven once through its
+     entry point with the counts from zero;
   3. a full k=17 MSM batch through the v3 pipeline equals the serial
      Pippenger on the card and the host oracle (sum k_i tau^i) G, and the
      v1 driver gives the same points;
   4. keygen of the ECDSA-P256 circuit at the default CircuitParams (k=17);
   5. api.generate_proof on a fixed signature with a deterministic rng, every
-     commitment through the v3 pipeline, whose batches are recorded;
+     commitment through the v3 pipeline, whose batches are recorded, and
+     the shape of every montmul and NTT kernel launch;
   6. api.verify accepts it and rejects a tampered copy; the port's verifier
      accepts results/proof_shplonk_k17.hex (made by the JAX package); then
      the v3 MSM kernels on the proof's own six commit batches: each timed
-     with its least work on that data (digit 0 excluded), summed over the
-     proof (`proof_ms`, `proof_bound_ms`), the interior also one MSM at a
-     time as the v1 route launches it; the advice batch and the last batch
-     checked against the plain versions;
+     with its least work on that data (digit 0 excluded), per batch and
+     summed over the proof (`proof_ms`, `proof_bound_ms`), the interior
+     also one MSM at a time as the v1 route launches it; the combine
+     checked against its plain version on every batch, the interior and
+     scan on the advice batch and the last batch; the montmul and NTT
+     kernels replayed at each of the proof's launch shapes, with a bound
+     for each, summed over the proof's launches;
   7. the same proof with the serial Pippenger as the commit engine
      (plonk/keygen.MSM_ENGINE), every point add through the fused EC add,
      is byte-identical;
@@ -44,8 +54,9 @@ Phases, one or more lines each:
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
      the serial bucket sum did not run on the v3 route; a `kernels` JSON
-     line with launches, times, bounds, the plain versions' times and, for
-     the MSM kernels, their times and bounds over the proof's batches.
+     line with launches, times, bounds, the plain versions' times, for the
+     MSM kernels their times and bounds over the proof's batches (the
+     combine's also per batch), and for rows 1-3 the proof's launch shapes.
 """
 from __future__ import annotations
 
@@ -119,31 +130,137 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def phase_kernels(dev, gen):
-    """Phase 2: each kernel against its plain version, exact words."""
-    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
-    from webauthn_halo2_tpu_torch.ops import modops as M
-    from webauthn_halo2_tpu_torch.ops import ntt as N
+def _graph_ms(fn, calls: int = 200, replays: int = 50) -> float:
+    """ms a call of `fn`, from a CUDA graph of `calls` calls replayed
+    `replays` times: the host's cost of a launch does not enter, which
+    matters for kernels of a few tens of microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
-    rows = {}
-    # montmul at the prover's column (2^17) and extended (2^19) widths
+
+def _clocks_during(fn) -> tuple:
+    """(ms a call by `_graph_ms`, median SM clock MHz, median power W), with
+    nvidia-smi sampling the card every 50 ms meanwhile."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.2)
+        ms = _graph_ms(fn)
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=30)
+    samples = [tuple(float(v) for v in line.split(",")) for line in out.splitlines()
+               if line.count(",") == 1]
+    if not samples:
+        return ms, None, None
+
+    def median(vals):
+        return sorted(vals)[len(vals) // 2]
+
+    return ms, median([c for c, _ in samples]), median([p for _, p in samples])
+
+
+def _montmul_edge_words(spec) -> list:
+    """0, 1, 2, p - 1, p - 2, words just below p, R mod p and R^2 mod p, and
+    values with all-ones or all-zero low words."""
+    p = spec.p
+    r = (1 << 256) % p
+    return [0, 1, 2, p - 1, p - 2, p - 3, p - (1 << 32), p - (1 << 128) - 1,
+            p - 1 - (p >> 1), r, r * r % p, (1 << 224) - 1, (1 << 253),
+            p >> 1, (p >> 32) << 32]
+
+
+def phase_montmul(dev, gen) -> dict:
+    """Phase 2, row 1: the montmul kernel against its plain version, exact
+    words: random words at the prover's column (2^17) and extended (2^19)
+    widths; every pair of edge words in Fr and Fq; a broadcast (8, 1)
+    operand on either side; strided slices of a stacked (8, 3, n) tensor;
+    ragged sizes. Then its time at (8, 2^19), warm (the same operands every
+    call, 48 MB, which nearly fit the 50 MB L2) and cold (four operand sets
+    in turn, 192 MB), from CUDA graph replays (`timed_by`), with the SM
+    clock and power draw read beside each."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC, FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import modops as M
+
+    def check(what, a, b, spec=FR_SPEC):
+        err = _max_abs_err(M.montmul_cuda(spec, a, b), M.montmul_plain(spec, a, b))
+        torch.cuda.synchronize()
+        log(f"[kernels] montmul {what}: max_abs_err={err}")
+        if err:
+            fail(f"montmul kernel disagrees with its plain version: {what}")
+        return err
+
+    errs = []
     for logn in (17, 19):
         a = _rand_words(FR_SPEC, (1 << logn,), gen, dev)
         b = _rand_words(FR_SPEC, (1 << logn,), gen, dev)
-        got = M.montmul_cuda(FR_SPEC, a, b)
-        want = M.montmul_plain(FR_SPEC, a, b)
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, want)
-        log(f"[kernels] montmul (8, 2^{logn}): max_abs_err={err}")
-        if err:
-            fail(f"montmul kernel disagrees with its plain version at 2^{logn}")
-        if logn == 19:
-            n = 1 << logn
-            rows["montmul"] = dict(
-                err=err, shape=f"(8, 2^{logn})",
-                ms=_events_ms(lambda: M.montmul_cuda(FR_SPEC, a, b), 50),
+        errs.append(check(f"(8, 2^{logn}) random", a, b))
+    for spec in (FR_SPEC, FQ_SPEC):
+        vals = _montmul_edge_words(spec)
+        pairs = [(x, y) for x in vals for y in vals]
+        ea = torch.as_tensor(spec.encode([x for x, _ in pairs], mont=False)).to(dev)
+        eb = torch.as_tensor(spec.encode([y for _, y in pairs], mont=False)).to(dev)
+        errs.append(check(f"{spec.name} edge words, {len(pairs)} pairs", ea, eb, spec))
+    n = 1 << 17
+    a = _rand_words(FR_SPEC, (n,), gen, dev)
+    c = _rand_words(FR_SPEC, (1,), gen, dev)
+    errs.append(check("(8, 1) x (8, 2^17)", c, a))
+    errs.append(check("(8, 2^17) x (8, 1)", a, c))
+    stack = _rand_words(FR_SPEC, (3, n), gen, dev)
+    errs.append(check("slices [:, 1] x [:, 2] of a stacked (8, 3, 2^17)",
+                      stack[:, 1], stack[:, 2]))
+    errs.append(check("slice [:, 2] of a stacked (8, 3, 2^17) x (8, 1)", stack[:, 2], c))
+    for extra in (3, 2):
+        r = _rand_words(FR_SPEC, (2, n + extra), gen, dev)
+        errs.append(check(f"ragged (8, 2^17 + {extra})", r[:, 0], r[:, 1]))
+
+    logn = 19
+    n = 1 << logn
+    sets = [(_rand_words(FR_SPEC, (n,), gen, dev), _rand_words(FR_SPEC, (n,), gen, dev))
+            for _ in range(4)]
+    a, b = sets[0]
+    warm = _clocks_during(lambda: M.montmul_cuda(FR_SPEC, a, b))
+    turn = [0]
+
+    def cold():
+        x, y = sets[turn[0] % len(sets)]
+        turn[0] += 1
+        return M.montmul_cuda(FR_SPEC, x, y)
+
+    cold_t = _clocks_during(cold)
+    log(f"[kernels] montmul (8, 2^{logn}): warm {warm[0]:.4f} ms "
+        f"(SM {warm[1]} MHz, {warm[2]} W), cold {cold_t[0]:.4f} ms "
+        f"(SM {cold_t[1]} MHz, {cold_t[2]} W)")
+    return dict(err=max(errs), shape=f"(8, 2^{logn})", ms=warm[0], ms_cold=cold_t[0],
+                timed_by="cuda_graph", clocks=dict(
+                    warm_sm_mhz=warm[1], warm_power_w=warm[2],
+                    cold_sm_mhz=cold_t[1], cold_power_w=cold_t[2]),
                 plain_ms=_events_ms(lambda: M.montmul_plain(FR_SPEC, a, b), 3),
                 bytes=3 * ELEM_BYTES * n, ops=IMAD_PER_MONTMUL * n)
+
+
+def phase_kernels(dev, gen):
+    """Phase 2: each kernel against its plain version, exact words."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    rows = {"montmul": phase_montmul(dev, gen)}
 
     # full transforms at k=17, batch 1 and 9: kernels vs the stage loop
     k = 17
@@ -258,12 +375,13 @@ def _bound_ms(row: dict) -> tuple:
 
 
 def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False,
-                check: bool = True, iters: int = 5):
+                check: bool = True, iters: int = 5, check_combine: bool | None = None):
     """The v3 pipeline's three kernels on one batch, each (with `check`)
     against its plain version on the same inputs: exact words, the scan's
     at the segment tails, the only positions it defines. Returns a row per
     kernel (with `timed`, its ms a launch and its least work), the buckets
-    after the scatter, and the window sums."""
+    after the scatter, and the window sums. `check_combine` (default:
+    `check`) checks the combine alone."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
     from webauthn_halo2_tpu_torch.ops import modops as M
     from webauthn_halo2_tpu_torch.ops import msm as MS
@@ -291,7 +409,7 @@ def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False,
             merged, MF.scan_plain(curve, bnd, seg))))
     MF.scatter_tails(buckets, merged, seg)
     wsums = MF.combine_cuda(curve, buckets)
-    if check:
+    if check if check_combine is None else check_combine:
         rows["msm_combine"]["err"] = _pt_err(wsums, MF.combine_plain(curve, buckets))
     torch.cuda.synchronize()
     if not timed:
@@ -305,14 +423,15 @@ def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False,
     plains = {"msm_interior": lambda: MF.interior_plain(*args),
               "msm_scan": lambda: MF.scan_plain(curve, bnd, seg),
               "msm_combine": lambda: MF.combine_plain(curve, buckets)}
+    P, q = MF._row_shape(G)
     shapes = {"msm_interior": f"{shape}, {work['msm_interior']['madds']} nonzero madds",
               "msm_scan": f"R={R}, {seg.shape[1]} fragments, {work['msm_scan']['segments']} "
                           f"segments, {work['msm_scan']['adds']} adds of two finite points",
-              "msm_combine": f"R={R}, nb={nb}, m={m}, G={G}"}
+              "msm_combine": f"R={R}, nb={nb}, m={m}, G={G}, P={P}, q={q}"}
     for name, row in rows.items():
         row.update(shape=shapes[name], bytes=work[name]["bytes"], ops=work[name]["ops"],
                    ms=_events_ms(calls[name], iters * (2 if name == "msm_scan" else 1)))
-        if check:
+        if row["err"] is not None:
             row["plain_ms"] = _events_ms(plains[name], 1)
     return rows, buckets, wsums
 
@@ -443,9 +562,9 @@ def phase_proof_batches(srs, batches: list, lanes: int):
     batches (advice, lookup, grand products, quotient pieces, SHPLONK h and
     W), each timed with its least work; the interior and the scan (and the
     combine) checked against their plain versions on the advice batch and
-    the last (random-scalar) batch; the interior also at the v1 route's
-    launches, one MSM (20 rows) at a time. Returns per-kernel sums over the
-    proof: (ms, bound ms)."""
+    the last (random-scalar) batch, the combine on every batch; the interior
+    also at the v1 route's launches, one MSM (20 rows) at a time. Returns
+    per-kernel sums over the proof, (ms, bound ms), and each batch's rows."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
     from webauthn_halo2_tpu_torch.ops import ec as E
     from webauthn_halo2_tpu_torch.ops import modops as M
@@ -456,10 +575,13 @@ def phase_proof_batches(srs, batches: list, lanes: int):
     n = srs.n
     c = MS._default_c(n)
     sums = {k: [0.0, 0.0] for k in ("msm_interior", "msm_scan", "msm_combine", "msm_interior_v1")}
+    per_batch = []
     for i, (points, scalars) in enumerate(batches):
         check = i in (0, len(batches) - 1)
         rows, _, _ = _msm_stages(curve, points, scalars, c, lanes, timed=True, check=check,
-                                 iters=3)
+                                 iters=3, check_combine=True)
+        per_batch.append({k: dict(ms=r["ms"], bound_ms=_bound_ms(r)[0], err=r["err"],
+                                  shape=r["shape"]) for k, r in rows.items()})
         for name, row in rows.items():
             sums[name][0] += row["ms"]
             sums[name][1] += _bound_ms(row)[0]
@@ -476,11 +598,11 @@ def phase_proof_batches(srs, batches: list, lanes: int):
         sums["msm_interior_v1"][1] += _bound_ms(rows["msm_interior"])[0]
         log(f"[proof batches] batch {i}: B={B} "
             + "; ".join(f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {_bound_ms(r)[0]:.4f} ms"
-                        + (f", max_abs_err={r['err']}" if check else "")
+                        + (f", max_abs_err={r['err']}" if r["err"] is not None else "")
                         for k, r in rows.items()))
     log("[proof batches] over the proof: " + json.dumps(
         {k: {"ms": v[0], "bound_ms": v[1]} for k, v in sums.items()}))
-    return sums
+    return sums, per_batch
 
 
 def phase_interior_v1(dev, gen, srs):
@@ -502,6 +624,112 @@ def phase_interior_v1(dev, gen, srs):
         if row["err"]:
             fail(f"{name} disagrees with its plain version at the v1 route's shape")
     return rows["msm_interior"]
+
+
+def phase_combine_sparse(dev, srs):
+    """Phase 2, row 6: the combine kernels on buckets that are mostly empty
+    (about 1 in 100 filled), where running and suffix sums repeat over long
+    empty ranges, at the v1 route's R = 20 rows of 8192 buckets; row 0
+    holds one non-empty bucket and row 1 none. Each bucket is the sum of
+    two SRS points, no point in two buckets. Checked against the plain
+    version (words) and the host sum sum_b b B_b (affine)."""
+    from webauthn_halo2_tpu_torch.fields.ref_curve import BN254_G1_CURVE as G
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    curve = E.BN254_CURVE
+    R, nb = 20, 1 << MS._default_c(srs.n)
+    cpu = torch.Generator().manual_seed(23)
+    fill = torch.rand(R, nb, generator=cpu) < 0.01
+    fill[:, 0] = False
+    fill[0] = False
+    fill[0, nb - 1 - 1234] = True
+    fill[1] = False
+    k = int(fill.sum())
+    perm = torch.randperm(srs.n, generator=cpu)[:2 * k].to(dev)
+    sums = E.add_unsafe(curve, *(E.JPoint(*(c[:, i] for c in srs.g_lag))
+                                 for i in (perm[:k], perm[k:])))
+    inf = E.infinity((R, nb), curve, dev)
+    buckets = E.JPoint(*(c.clone().contiguous() for c in inf))
+    at = fill.to(dev)
+    for b, v in zip(buckets, sums):
+        b[:, at] = v
+    got = MF.combine_cuda(curve, buckets)
+    err = _pt_err(got, MF.combine_plain(curve, buckets))
+    aff = E.to_affine_ints(curve, sums)
+    rows, cols = torch.nonzero(fill, as_tuple=True)
+    host = [None] * R
+    for r, col, p in zip(rows.tolist(), cols.tolist(), aff):
+        host[r] = G.add(host[r], G.mul(col, p))
+    ok = E.to_affine_ints(curve, got) == host
+    log(f"[kernels] msm_combine on mostly empty buckets (R={R}, nb={nb}, {k} filled; "
+        f"row 0 one bucket, row 1 none): max_abs_err={err} host sum: {ok}")
+    if err or not ok:
+        fail("the combine kernels are wrong on mostly empty buckets")
+
+
+def _launch_recorder(module, name: str, key, seen: list):
+    """Wrap module.name so that each call first appends key(*args) to seen;
+    returns a function that puts the original back."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        seen.append(key(*args, **kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, wrapper)
+    return lambda: setattr(module, name, orig)
+
+
+def phase_launch_shapes(dev, gen, shapes: dict) -> dict:
+    """Rows 1-3 on the proof's own launches: for each launch shape the main
+    path's proof gave the montmul and NTT kernels (recorded on its way), its
+    count, its bound, and its time replayed on random words (CUDA graph
+    replays); summed over the proof. Returns per kernel (ms, bound ms,
+    histogram)."""
+    from collections import Counter
+
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    out = {}
+    for name, seen in shapes.items():
+        hist = Counter(seen)
+        ms_sum = bound_sum = 0.0
+        table = []
+        for key, count in sorted(hist.items()):
+            if name == "montmul":
+                n, a_bc, b_bc = key
+                a = _rand_words(FR_SPEC, (1 if a_bc else n,), gen, dev)
+                b = _rand_words(FR_SPEC, (1 if b_bc else n,), gen, dev)
+                fn = lambda: M.montmul_cuda(FR_SPEC, a, b)  # noqa: E731
+                work = dict(bytes=ELEM_BYTES * ((1 if a_bc else n) + (1 if b_bc else n) + n),
+                            ops=IMAD_PER_MONTMUL * n)
+            else:
+                B, n, s = key
+                x = _rand_words(FR_SPEC, (B, n), gen, dev)
+                tw = N._twiddles_dev(n.bit_length() - 1, False, dev)
+                if name == "ntt_stage_a":
+                    fn = lambda: N.stage_a(FR_SPEC, x, tw, s)  # noqa: E731
+                    work = dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * ((1 << s) - 1),
+                                ops=IMAD_PER_MONTMUL * B * (n // 2) * s)
+                else:
+                    fn = lambda: N.stage_b(FR_SPEC, x, tw, s)  # noqa: E731
+                    work = dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * (1 << s),
+                                ops=IMAD_PER_MONTMUL * B * (n // 2))
+            ms = _graph_ms(fn, calls=10, replays=5)
+            bound = _bound_ms(work)[0]
+            ms_sum += count * ms
+            bound_sum += count * bound
+            table.append(dict(shape=list(key), launches=count, ms=ms, bound_ms=bound))
+            torch.cuda.empty_cache()
+        out[name] = (ms_sum, bound_sum, table)
+        log(f"[proof launches] {name}: {len(seen)} launches in {len(hist)} shapes, replayed "
+            f"{ms_sum:.4f} ms against a bound of {bound_sum:.4f} ms; "
+            + json.dumps(table))
+    return out
 
 
 def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
@@ -649,6 +877,38 @@ def _det_rng(seed: bytes):
     return rng
 
 
+def _signed_message() -> tuple:
+    """The fixed ECDSA-P256 signature the smoke run proves: r, s, the public
+    key's x and y and the message, as 32-byte little-endian strings, the
+    arguments of api.generate_proof."""
+    from webauthn_halo2_tpu_torch.fields.ref_curve import (P256_CURVE, ecdsa_keygen,
+                                                           ecdsa_sign)
+
+    sk, pub = ecdsa_keygen(rng=_Seeded(2024))
+    m = _Seeded(4096).randbelow(P256_CURVE.n)
+    r, s = ecdsa_sign(m, sk, k=1 + _Seeded(8192).randbelow(P256_CURVE.n - 1))
+    return tuple(int(v).to_bytes(32, "little") for v in (r, s, *pub, m))
+
+
+def _record_window_sums(batches: list):
+    """Make the v3 pipeline append each batch that reaches it (its bases and
+    a copy of its scalars) to `batches`; returns a function that undoes it."""
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+
+    window_sums = MF.window_sums
+
+    def recording(curve, points, scalars, c, lanes):
+        batches.append((points, scalars.clone()))
+        return window_sums(curve, points, scalars, c, lanes)
+
+    MF.window_sums = recording
+
+    def undo():
+        MF.window_sums = window_sums
+
+    return undo
+
+
 # The largest commit batch of keygen and the proof (9 fixed and 9 sigma
 # columns in keygen, 8 advice columns in the proof): phase 2 checks the MSM
 # kernels at 20 windows x this many rows, and the main path must stay within.
@@ -665,7 +925,7 @@ KERNEL_META = {
                      "webauthn_halo2_tpu/ops/msm_pallas.py:403"),
     "msm_scan": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
                  "webauthn_halo2_tpu/ops/msm_pallas.py:492"),
-    "msm_combine": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
+    "msm_combine": ("webauthn_halo2_tpu_torch/csrc/combine.cu",
                     "webauthn_halo2_tpu/ops/msm_pallas.py:712"),
     "msm_interior_v1": ("webauthn_halo2_tpu_torch/csrc/msm.cu",
                         "webauthn_halo2_tpu/ops/msm_pallas.py:269"),
@@ -688,9 +948,6 @@ def main() -> int:
     try:
         from webauthn_halo2_tpu_torch import api
         from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams
-        from webauthn_halo2_tpu_torch.fields.ref_curve import (P256_CURVE,
-                                                               ecdsa_keygen,
-                                                               ecdsa_sign)
         from webauthn_halo2_tpu_torch.ops import ec as E
         from webauthn_halo2_tpu_torch.ops import kernels as K
         from webauthn_halo2_tpu_torch.ops import modops as M
@@ -732,6 +989,7 @@ def main() -> int:
     srs = get_srs(params.degree, device=dev)
     rows.update(phase_msm_kernels(dev, gen, srs, COMMIT_BATCH))
     rows["msm_interior_v1"] = phase_interior_v1(dev, gen, srs)
+    phase_combine_sparse(dev, srs)
     nwin = -(-MS.SCALAR_BITS // MS._default_c(srs.n))
     rows["ec_add_unsafe"] = phase_ec_add(dev, gen, srs, nwin * COMMIT_BATCH,
                                          MS._default_lanes(srs.n))
@@ -747,13 +1005,7 @@ def main() -> int:
     # that reach the v3 pipeline are recorded on the way (bases and a copy
     # of the scalars)
     batches = []
-    window_sums = MF.window_sums
-
-    def recording_window_sums(curve, points, scalars, c, lanes):
-        batches.append((points, scalars.clone()))
-        return window_sums(curve, points, scalars, c, lanes)
-
-    MF.window_sums = recording_window_sums
+    stop_recording = _record_window_sums(batches)
 
     def counts():
         return {"montmul": M.LAUNCHES["montmul"],
@@ -775,23 +1027,28 @@ def main() -> int:
         f"vk={pk.vk.transcript_repr:#x} "
         + json.dumps({k: round(v, 3) for k, v in pk.spans.items()}))
 
-    sk, pub = ecdsa_keygen(rng=_Seeded(2024))
-    m = _Seeded(4096).randbelow(P256_CURVE.n)
-    r, s = ecdsa_sign(m, sk, k=1 + _Seeded(8192).randbelow(P256_CURVE.n - 1))
-
-    def le(v):
-        return int(v).to_bytes(32, "little")
+    signed = _signed_message()
 
     def prove():
-        return api.generate_proof(le(r), le(s), le(pub[0]), le(pub[1]), le(m),
-                                  params=params, device=dev,
+        return api.generate_proof(*signed, params=params, device=dev,
                                   rng=_det_rng(b"chip_smoke"))
 
     after_keygen = counts()
     keygen_batches = len(batches)
+    launch_shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+    restore = [
+        _launch_recorder(M, "montmul_cuda", lambda spec, a, b, *_, **__: (
+            max(a[0].numel(), b[0].numel(), torch.broadcast_shapes(a.shape, b.shape)[1:].numel()),
+            a.numel() == 8, b.numel() == 8), launch_shapes["montmul"]),
+        _launch_recorder(N, "stage_a", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
+                         launch_shapes["ntt_stage_a"]),
+        _launch_recorder(N, "stage_b", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
+                         launch_shapes["ntt_stage_b"])]
     t0 = time.time()
     proof = prove()
     prove_s = time.time() - t0
+    for undo in restore:
+        undo()
     spans = dict(PR.LAST_SPANS)
     per_proof = {k: v - after_keygen[k] for k, v in counts().items()}
     log(f"[prove] {len(proof)} bytes in {prove_s:.1f}s spans="
@@ -814,16 +1071,22 @@ def main() -> int:
     if not jax_ok:
         fail("the port's verifier rejected the JAX package's k=17 proof")
     launches = counts()
-    MF.window_sums = window_sums
+    stop_recording()
     sizes = [sc.shape[1] for _, sc in batches]
 
     # the v3 kernels on the proof's own commit batches
     t0 = time.time()
-    proof_sums = phase_proof_batches(srs, batches[keygen_batches:], MF.lanes_for(srs.n))
+    proof_sums, per_batch = phase_proof_batches(srs, batches[keygen_batches:],
+                                                MF.lanes_for(srs.n))
     for name, (ms, bound) in proof_sums.items():
         rows[name].update(proof_ms=ms, proof_bound_ms=bound)
+    rows["msm_combine"]["batches"] = [
+        dict(rows=int(b["msm_combine"]["shape"].split(",")[0][2:]), ms=b["msm_combine"]["ms"],
+             bound_ms=b["msm_combine"]["bound_ms"]) for b in per_batch]
     log(f"[proof batches] done ({time.time() - t0:.1f}s)")
     del batches
+    for name, (ms, bound, table) in phase_launch_shapes(dev, gen, launch_shapes).items():
+        rows[name].update(proof_ms=ms, proof_bound_ms=bound, proof_launch_shapes=table)
 
     # 7. the same proof on the serial route: byte for byte, every point add
     #    through the fused EC add
@@ -886,11 +1149,14 @@ def main() -> int:
             "replaces": KERNEL_META[name][1], "launches": by_path[path][counter],
             "max_abs_err": row["err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None, "proof_ms": row.get("proof_ms"),
+            "library_ms": None, "timed_by": row.get("timed_by", "cuda_events"),
+            "proof_ms": row.get("proof_ms"),
             "proof_bound_ms": row.get("proof_bound_ms"), "shape": row["shape"], "path": path,
             "launches_by_path": {p: c.get(counter, 0) for p, c in by_path.items()
                                  if counter in c},
             "launches_per_proof": per_proof.get(counter) if path == "v3" else None,
+            **{k: row[k] for k in ("batches", "ms_cold", "clocks", "proof_launch_shapes")
+               if k in row},
         })
     log(f"[total] {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -145,3 +145,21 @@ def test_montmul_wrapper_on_cpu_takes_the_plain_version():
     assert M.LAUNCHES["montmul"] == before
     with pytest.raises(ValueError):
         M.montmul_cuda(FR_SPEC, a, a)
+
+
+def test_montmul_kernel_operands():
+    """What montmul_cuda hands the kernel, on CPU tensors: a (8, 1)
+    constant broadcasts (no limb stride needed), a slice of a stacked
+    (8, B, n) tensor keeps its limb stride and needs no copy, and a ragged
+    width is taken as it is."""
+    n = 64
+    stack = torch.zeros((8, 3, n + 2), dtype=torch.int32)
+    dense = torch.zeros((8, 2, n), dtype=torch.int32)
+    c = torch.zeros((8, 1), dtype=torch.int32)
+    assert M._kernel_operand(c, (n,))[1:] == (1, 1)
+    assert M._kernel_operand(dense[:, 1], (n,))[1:] == (2 * n, 0)
+    sl = stack[:, 1, :n]
+    t, ls, bc = M._kernel_operand(sl, (n,))
+    assert (ls, bc) == (3 * (n + 2), 0) and t.data_ptr() == sl.data_ptr()
+    ragged = torch.zeros((8, 2, n + 3), dtype=torch.int32)
+    assert M._kernel_operand(ragged[:, 0], (n + 3,))[1:] == (2 * (n + 3), 0)

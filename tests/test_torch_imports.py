@@ -1,7 +1,8 @@
 """The port stands alone, and its entry points default to the card.
 
-An AST scan of every file of webauthn_halo2_tpu_torch/ and of
-chip_smoke.py: none imports jax or anything of the JAX package. Then each
+An AST scan of every file of webauthn_halo2_tpu_torch/, of chip_smoke.py
+and of the port's scripts (scripts/*_torch_*.py): none imports jax or
+anything of the JAX package. Then each
 public entry point, called without `device`, raises where there is no
 CUDA device (only an explicit device="cpu" runs on the CPU).
 """
@@ -33,7 +34,8 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "scripts").glob("*_torch_*.py")))
 
 
 def test_port_has_the_slice_modules():
@@ -47,7 +49,8 @@ def test_port_has_the_slice_modules():
                 "api.py", "convert.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
-        "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "ec.cu", "mxu.cu"}
+        "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",
+        "mxu.cu"}
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

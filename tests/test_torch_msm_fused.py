@@ -352,6 +352,15 @@ def test_point_major_bases_hold_x_then_y():
     assert torch.equal(pm[:, :W], pts.x.t()) and torch.equal(pm[:, W:], pts.y.t())
 
 
+def test_combine_constants_are_the_kernels():
+    src = (K.CSRC / "combine.cu").read_text()
+    assert f"#define COMBINE_ROW_THREADS {MF.COMBINE_ROW_THREADS}\n" in src
+    # stage 1 spreads a one-MSM batch (R = 20) over the card: 20 G threads
+    G, m = MF._combine_shape(1 << 13)
+    assert (G, m) == (MF.COMBINE_G, 8) and 20 * G >= 132 * 128
+    assert MF._row_shape(G) == (256, 4)
+
+
 def test_scan_tiling_is_the_kernels():
     src = (K.CSRC / "msm.cu").read_text()
     assert f"#define SCAN_THREADS {MF.SCAN_THREADS}\n" in src
@@ -360,3 +369,93 @@ def test_scan_tiling_is_the_kernels():
     # a one-MSM batch at k = 17 (20 rows of 2 K = 4096 fragments) fills the
     # card's 132 SMs with scan blocks
     assert 20 * -(-2 * MF.lanes_for(1 << 17) // MF.SCAN_TILE) >= 132
+
+
+def _host_combine(rows: list) -> list:
+    """sum_b b B_b of each row of host affine buckets (None: empty)."""
+    out = []
+    for row in rows:
+        acc = None
+        for b, p in enumerate(row):
+            acc = G.add(acc, G.mul(b, p)) if p else acc
+        out.append(acc)
+    return out
+
+
+def _bucket_rows(rows: list) -> E.JPoint:
+    nb = len(rows[0])
+    return E.JPoint(*(t.reshape(W, len(rows), nb) for t in _port(sum(rows, []))))
+
+
+@pytest.mark.parametrize("combine_g, row_threads", [(16, 4), (32, 2)])
+def test_combine_row_spans_several_row_threads(combine_g, row_threads, monkeypatch):
+    """A row's chunk partials spread over several stage-2 threads, each
+    folding q > 1 of them, and its chunks over several stage-1 threads: the
+    suffix of the thread totals and the three trees each carry a row's
+    sum across threads. Mostly filled, mostly empty and empty rows."""
+    monkeypatch.setattr(MF, "COMBINE_G", combine_g)
+    monkeypatch.setattr(MF, "COMBINE_ROW_THREADS", row_threads)
+    nb = 64
+    G_, m = MF._combine_shape(nb)
+    P, q = MF._row_shape(G_)
+    assert (G_, m, P, q) == (combine_g, nb // combine_g, row_threads, combine_g // row_threads)
+    ps = _srs_points(4 * nb)
+    rng = np.random.default_rng(combine_g)
+    rows = [[None if b == 0 or rng.random() < p else ps[r * nb + b] for b in range(nb)]
+            for r, p in enumerate((0.2, 0.9, 1.0))]
+    got = E.to_affine_ints(CURVE, MF.combine_plain(CURVE, _bucket_rows(rows)))
+    assert got == _host_combine(rows)
+    assert got[2] is None
+
+
+def test_combine_one_bucket_and_empty_rows(monkeypatch):
+    """A row with one non-empty bucket (its running and suffix sums repeat
+    over every empty bucket below it), and a row with every bucket empty
+    (the sum is infinity), on the card's row width."""
+    monkeypatch.setattr(MF, "COMBINE_G", 32)
+    nb = 256  # m = 8, P = 32, q = 1; and below, P = 8, q = 4
+    ps = _srs_points(8)
+    rows = [[None] * nb for _ in range(3)]
+    rows[0][nb - 37] = ps[3]
+    rows[2][1] = ps[5]
+    want = [G.mul(nb - 37, ps[3]), None, ps[5]]
+    buckets = _bucket_rows(rows)
+    assert E.to_affine_ints(CURVE, MF.combine_plain(CURVE, buckets)) == want
+    monkeypatch.setattr(MF, "COMBINE_ROW_THREADS", 8)
+    assert E.to_affine_ints(CURVE, MF.combine_plain(CURVE, buckets)) == want
+
+
+@pytest.mark.slow
+def test_combine_plain_matches_jax_combine_interpret(monkeypatch):
+    """The JAX package's Pallas `_combine` (interpret mode) and the plain
+    combine on the same buckets (nb = 64 at G = 16, m = 4; the plain
+    version's row reduction over 4 threads of 4 partials), as affine
+    ints, and both against the host sum."""
+    import jax.numpy as jnp
+
+    from webauthn_halo2_tpu.fields.limbs import L
+    from webauthn_halo2_tpu.ops import ec as JE
+    from webauthn_halo2_tpu.ops import limbvec as V
+    from webauthn_halo2_tpu.ops import msm_pallas as MP
+
+    monkeypatch.setattr(MF, "COMBINE_G", 16)
+    monkeypatch.setattr(MF, "COMBINE_ROW_THREADS", 4)
+    nb, Gc = 64, 16
+    m = nb // Gc
+    ps = _srs_points(2 * nb)
+    rng = np.random.default_rng(64)
+    rows = [[None if b == 0 or rng.random() < p else ps[r * nb + b] for b in range(nb)]
+            for r, p in enumerate((0.3, 0.8))]
+    R = len(rows)
+    jb = JE.from_affine_ints(JE.BN254_CURVE, sum(rows, []))
+
+    def to_mg(c):  # (L, R nb) -> (R, m, PW, G) 16-bit packed, bucket g m + i
+        b = jnp.transpose(c.reshape(L, R, nb), (1, 0, 2))
+        b = jnp.concatenate([b[:, 0:L - 1:2] + (b[:, 1:L - 1:2] << 16), b[:, L - 1:]], axis=1)
+        return jnp.transpose(b.reshape(R, V.PW, Gc, m), (0, 3, 1, 2))
+
+    wx, wy, wz = MP._combine(JE.BN254_CURVE.field, to_mg(jb.x), to_mg(jb.y), to_mg(jb.z), True)
+    got_j = JE.to_affine_ints(JE.BN254_CURVE,
+                              JE.JPoint(*(jnp.transpose(c[:, :, 0]) for c in (wx, wy, wz))))
+    got_p = E.to_affine_ints(CURVE, MF.combine_plain(CURVE, _bucket_rows(rows)))
+    assert got_p == got_j == _host_combine(rows)

@@ -18,6 +18,15 @@
 #pragma once
 #include "field.cuh"
 
+// EC_MUL and EC_SQR: the field multiply and square of these bodies,
+// field.cuh's carry-chain fe_montmul and fe_sqr unless the including
+// source names others before including this header (csrc/combine.cu
+// takes the 64-bit C ones, which measured faster there).
+#ifndef EC_MUL
+#define EC_MUL fe_montmul
+#define EC_SQR fe_sqr
+#endif
+
 struct Pt {
   Fe x, y, z;
 };
@@ -65,44 +74,53 @@ __device__ __forceinline__ void pt_store(uint32_t* x, uint32_t* y, uint32_t* z, 
 
 // p + (x2, y2) with Z2 = 1; p finite and not +-(x2, y2). The words of
 // ops/ec.py `add_unsafe` with Z2 = one, in 11 multiplies instead of 16, three
-// of them squares (fe_sqr gives the words of fe_montmul(a, a)).
+// of them squares (EC_SQR gives the words of EC_MUL(a, a)).
 __device__ __forceinline__ Pt ec_madd(const Pt& p, const Fe& x2, const Fe& y2, const Modulus& m) {
-  Fe z1z1 = fe_sqr(p.z, m);
-  Fe u2 = fe_montmul(x2, z1z1, m);
-  Fe s2 = fe_montmul(y2, fe_montmul(p.z, z1z1, m), m);
+  Fe z1z1 = EC_SQR(p.z, m);
+  Fe u2 = EC_MUL(x2, z1z1, m);
+  Fe s2 = EC_MUL(y2, EC_MUL(p.z, z1z1, m), m);
   Fe h = fe_sub(u2, p.x, m);
   Fe r = fe_sub(s2, p.y, m);
-  Fe hh = fe_sqr(h, m);
-  Fe hhh = fe_montmul(h, hh, m);
-  Fe v = fe_montmul(p.x, hh, m);
+  Fe hh = EC_SQR(h, m);
+  Fe hhh = EC_MUL(h, hh, m);
+  Fe v = EC_MUL(p.x, hh, m);
   Pt o;
-  o.x = fe_sub(fe_sub(fe_sqr(r, m), hhh, m), fe_dbl(v, m), m);
-  o.y = fe_sub(fe_montmul(r, fe_sub(v, o.x, m), m), fe_montmul(p.y, hhh, m), m);
-  o.z = fe_montmul(p.z, h, m);
+  o.x = fe_sub(fe_sub(EC_SQR(r, m), hhh, m), fe_dbl(v, m), m);
+  o.y = fe_sub(EC_MUL(r, fe_sub(v, o.x, m), m), EC_MUL(p.y, hhh, m), m);
+  o.z = EC_MUL(p.z, h, m);
   return o;
 }
 
+// EC_BODY: how ec_add_core and ec_double are compiled. Not inlined by
+// default: a kernel with many add sites (the scan's three levels) would
+// take about a minute to build with their unrolled multiplies at every
+// site, and a call passes the points through the stack. A source whose
+// kernels have few add sites and need their points in registers (the
+// combine, csrc/combine.cu) defines EC_BODY as __forceinline__ before
+// including this header.
+#ifndef EC_BODY
+#define EC_BODY __noinline__
+#endif
+
 // The general Jacobian sum without any select; H and R come back for the
-// complete add. ops/ec.py `_add_core`. Not inlined, nor is ec_double: the
-// combine kernel has seven adds and four doublings, and inlining their
-// unrolled multiplies at every site made msm.cu take about a minute to build.
-__device__ __noinline__ Pt ec_add_core(const Pt& p, const Pt& q, const Modulus& m, Fe& h,
+// complete add. ops/ec.py `_add_core`.
+__device__ EC_BODY Pt ec_add_core(const Pt& p, const Pt& q, const Modulus& m, Fe& h,
                                        Fe& r) {
-  Fe z1z1 = fe_montmul(p.z, p.z, m);
-  Fe z2z2 = fe_montmul(q.z, q.z, m);
-  Fe u1 = fe_montmul(p.x, z2z2, m);
-  Fe u2 = fe_montmul(q.x, z1z1, m);
-  Fe s1 = fe_montmul(p.y, fe_montmul(q.z, z2z2, m), m);
-  Fe s2 = fe_montmul(q.y, fe_montmul(p.z, z1z1, m), m);
+  Fe z1z1 = EC_MUL(p.z, p.z, m);
+  Fe z2z2 = EC_MUL(q.z, q.z, m);
+  Fe u1 = EC_MUL(p.x, z2z2, m);
+  Fe u2 = EC_MUL(q.x, z1z1, m);
+  Fe s1 = EC_MUL(p.y, EC_MUL(q.z, z2z2, m), m);
+  Fe s2 = EC_MUL(q.y, EC_MUL(p.z, z1z1, m), m);
   h = fe_sub(u2, u1, m);
   r = fe_sub(s2, s1, m);
-  Fe hh = fe_montmul(h, h, m);
-  Fe hhh = fe_montmul(h, hh, m);
-  Fe v = fe_montmul(u1, hh, m);
+  Fe hh = EC_MUL(h, h, m);
+  Fe hhh = EC_MUL(h, hh, m);
+  Fe v = EC_MUL(u1, hh, m);
   Pt o;
-  o.x = fe_sub(fe_sub(fe_montmul(r, r, m), hhh, m), fe_dbl(v, m), m);
-  o.y = fe_sub(fe_montmul(r, fe_sub(v, o.x, m), m), fe_montmul(s1, hhh, m), m);
-  o.z = fe_montmul(fe_montmul(p.z, q.z, m), h, m);
+  o.x = fe_sub(fe_sub(EC_MUL(r, r, m), hhh, m), fe_dbl(v, m), m);
+  o.y = fe_sub(EC_MUL(r, fe_sub(v, o.x, m), m), EC_MUL(s1, hhh, m), m);
+  o.z = EC_MUL(EC_MUL(p.z, q.z, m), h, m);
   return o;
 }
 
@@ -117,20 +135,20 @@ __device__ __forceinline__ Pt ec_add_unsafe(const Pt& p, const Pt& q, const Modu
 
 // a = 0 doubling; stays at infinity for Z = 0 (X, Y then are whatever the
 // formula gives, as in ops/ec.py `double`).
-__device__ __noinline__ Pt ec_double(const Pt& p, const Modulus& m) {
-  Fe a = fe_montmul(p.x, p.x, m);
-  Fe b = fe_montmul(p.y, p.y, m);
-  Fe c = fe_montmul(b, b, m);
+__device__ EC_BODY Pt ec_double(const Pt& p, const Modulus& m) {
+  Fe a = EC_MUL(p.x, p.x, m);
+  Fe b = EC_MUL(p.y, p.y, m);
+  Fe c = EC_MUL(b, b, m);
   Fe xb = fe_add(p.x, b, m);
-  Fe t = fe_montmul(xb, xb, m);
+  Fe t = EC_MUL(xb, xb, m);
   Fe d = fe_dbl(fe_sub(fe_sub(t, a, m), c, m), m);
   Fe e = fe_add(fe_dbl(a, m), a, m);
-  Fe f = fe_montmul(e, e, m);
+  Fe f = EC_MUL(e, e, m);
   Fe c8 = fe_dbl(fe_dbl(fe_dbl(c, m), m), m);
   Pt o;
   o.x = fe_sub(f, fe_dbl(d, m), m);
-  o.y = fe_sub(fe_montmul(e, fe_sub(d, o.x, m), m), c8, m);
-  o.z = fe_montmul(fe_dbl(p.y, m), p.z, m);
+  o.y = fe_sub(EC_MUL(e, fe_sub(d, o.x, m), m), c8, m);
+  o.z = EC_MUL(fe_dbl(p.y, m), p.z, m);
   return o;
 }
 
@@ -143,4 +161,26 @@ __device__ __forceinline__ Pt ec_add(const Pt& p, const Pt& q, const Modulus& m,
   Pt o = ec_add_core(p, q, m, h, r);
   if (fe_is_zero(h)) return fe_is_zero(r) ? ec_double(p, m) : pt_infinity(one);
   return o;
+}
+
+// A point in shared memory, word-major over `n` slots: word i of x at
+// sm[i * n + slot], then y, then z (a warp's accesses hit distinct banks).
+__device__ __forceinline__ void sm_store(uint32_t* sm, int n, int slot, const Pt& p) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    sm[i * n + slot] = p.x.w[i];
+    sm[(NW + i) * n + slot] = p.y.w[i];
+    sm[(2 * NW + i) * n + slot] = p.z.w[i];
+  }
+}
+
+__device__ __forceinline__ Pt sm_load(const uint32_t* sm, int n, int slot) {
+  Pt p;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    p.x.w[i] = sm[i * n + slot];
+    p.y.w[i] = sm[(NW + i) * n + slot];
+    p.z.w[i] = sm[(2 * NW + i) * n + slot];
+  }
+  return p;
 }

@@ -1,27 +1,28 @@
 // The v3 Pippenger commit pipeline over bn254 G1: interior run
-// accumulation, segmented reduction of the lane-boundary fragments, and the
-// bucket combine sum_b b * B_b. Driven by ops/msm_fused.py.
+// accumulation and segmented reduction of the lane-boundary fragments. The
+// bucket combine sum_b b * B_b that follows is csrc/combine.cu. Driven by
+// ops/msm_fused.py.
 //
 // Replaces the TPU kernels of webauthn_halo2_tpu/ops/msm_pallas.py:
 //   * msm_interior_kernel  <- _interior_v2 (_interior_kernel_v2), and the
 //     same function as v1's _interior (_interior_kernel);
 //   * msm_scan_tile_kernel + msm_scan_join_kernel <- _scan_pallas
-//     (_scan_kernel);
-//   * msm_combine_kernel   <- _combine (_combine_kernel).
+//     (_scan_kernel).
 //
 // Rows: row r is window w of MSM b (r = w * B + b), each with its own
 // sorted digit stream. Bucket arrays are (8, R * nb) word-major, bucket b of
 // row r at element r * nb + b; boundary fragments (8, R * 2K) likewise.
 //
-// Two things differ from what the TPU kernels return; the window sums, and
-// so every commitment, are the same words:
+// Two things differ from what the TPU kernels return; the window sums are
+// the same points, and so every commitment is the same:
 //   1. Points whose digit is 0 contribute nothing: bucket 0, and every
 //      boundary fragment labelled with digit 0, hold infinity. The combine
-//      never reads bucket 0: B_0 enters only chunk 0's total T_0, T_0 only
-//      the suffix E'_0, the window sum takes m * sum_{g >= 1} E'_g, and each
-//      weighted sum W_g adds run_i for i >= 1 only (combine below,
-//      msm_pallas._combine_kernel). The segment ids are unchanged, and every
-//      digit != 0 gets the same madds in the same order, so the same words.
+//      gives bucket 0 no weight: B_0 enters only chunk 0's total T_0, T_0
+//      only the first row thread's total and suffix E_0, which the window
+//      sum leaves out, and each weighted sum adds run_i for i >= 1 only
+//      (csrc/combine.cu; msm_pallas._combine_kernel likewise). The segment
+//      ids are unchanged, and every digit != 0 gets the same madds in the
+//      same order, so the same words.
 //   2. The scan returns segment totals, not an inclusive scan: at the tail
 //      of each segment with a nonzero digit, the segment's total; at a
 //      digit-0 tail, infinity; other positions are left unwritten. The tail
@@ -84,16 +85,6 @@
 // is one add per finite fragment beyond its segment's first finite one
 // (digit != 0); level 2 adds at most seven steps and level 3 one add per
 // tile a segment crosses.
-//
-// Combine. Bounded by operations (m unsafe and m complete adds per chunk,
-// then three trees of G adds per row, on 786 KB of buckets). One block per
-// row, thread g owns chunk g (buckets g m .. g m + m - 1): it walks them from
-// the top with the running sum (unsafe add) and the weighted sum W_g
-// (complete add) in registers. The cross-chunk suffix and the two lane trees
-// then exchange points through one (G, 96 B) array in shared memory, a read
-// and a write separated by __syncthreads. Complete and unsafe adds are used
-// exactly where the JAX package uses them (suffix partials repeat across
-// empty buckets).
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
@@ -103,7 +94,6 @@
 #define SCAN_CHUNK 4
 #define SCAN_TILE (SCAN_THREADS * SCAN_CHUNK)
 #define JOIN_THREADS 128
-#define COMBINE_MAX_G 512
 
 static Modulus make_modulus(const uint32_t* p_words, uint32_t n0) {
   Modulus m;
@@ -210,26 +200,6 @@ __global__ void __launch_bounds__(INTERIOR_THREADS) msm_interior_kernel(
   }
   pt_store(fx, fy, fz, f_ls, slot + 1, acc);
   seg[slot + 1] = cur;
-}
-
-__device__ __forceinline__ void sm_store(uint32_t* sm, int G, int g, const Pt& p) {
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    sm[i * G + g] = p.x.w[i];
-    sm[(NW + i) * G + g] = p.y.w[i];
-    sm[(2 * NW + i) * G + g] = p.z.w[i];
-  }
-}
-
-__device__ __forceinline__ Pt sm_load(const uint32_t* sm, int G, int g) {
-  Pt p;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    p.x.w[i] = sm[i * G + g];
-    p.y.w[i] = sm[(NW + i) * G + g];
-    p.z.w[i] = sm[(2 * NW + i) * G + g];
-  }
-  return p;
 }
 
 // Levels 1 and 2 of the scan. Fragments in/out (8, R * M), fragment i of row
@@ -340,62 +310,6 @@ __global__ void __launch_bounds__(JOIN_THREADS) msm_scan_join_kernel(
   pt_store(ox, oy, oz, ls, rb + h, ec_add_unsafe(acc, pt_load(ox, oy, oz, ls, rb + h), m));
 }
 
-// One block of G threads per row; buckets (8, R * nb), nb = m G, bucket
-// g m + i of row r at element r * nb + g m + i. Writes the row's
-// sum_b b * B_b to element r of out (8, R).
-__global__ void __launch_bounds__(COMBINE_MAX_G) msm_combine_kernel(
-    const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
-    const uint32_t* __restrict__ bz, uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-    uint32_t* __restrict__ oz, int R, int nb, int m, Modulus mod, Fe one) {
-  extern __shared__ uint32_t sm[];  // [3][8][G] words
-  const int G = blockDim.x;
-  const int g = threadIdx.x;
-  const int r = blockIdx.x;
-  const long long ls = (long long)R * nb;
-  const long long base = (long long)r * nb + (long long)g * m;
-
-  // 1) within the chunk, from the top: run = sum_{i' >= i} B_i' (unsafe),
-  //    W = sum_{i >= 1} run_i (complete)
-  Pt run = pt_load(bx, by, bz, ls, base + m - 1);
-  Pt w = run;
-  for (int i = m - 2; i >= 1; --i) {
-    run = ec_add_unsafe(run, pt_load(bx, by, bz, ls, base + i), mod);
-    w = ec_add(w, run, mod, one);
-  }
-  if (m > 1) run = ec_add_unsafe(run, pt_load(bx, by, bz, ls, base), mod);
-  if (m == 1) w = pt_infinity(one);
-
-  // 2) cross-chunk inclusive suffix of the chunk totals (unsafe)
-  Pt e = run;
-  for (int d = 1; d < G; d <<= 1) {
-    sm_store(sm, G, g, e);
-    __syncthreads();
-    if (g < G - d) e = ec_add_unsafe(e, sm_load(sm, G, g + d), mod);
-    __syncthreads();
-  }
-  // X = sum_{g >= 1} E'_g: a tree of complete adds into lane 0
-  Pt x = g == 0 ? pt_infinity(one) : e;
-  for (int d = G >> 1; d >= 1; d >>= 1) {
-    sm_store(sm, G, g, x);
-    __syncthreads();
-    if (g < d) x = ec_add(x, sm_load(sm, G, g + d), mod, one);
-    __syncthreads();
-  }
-  // Y = sum_g W_g: a tree of unsafe adds into lane 0
-  Pt y = w;
-  for (int d = G >> 1; d >= 1; d >>= 1) {
-    sm_store(sm, G, g, y);
-    __syncthreads();
-    if (g < d) y = ec_add_unsafe(y, sm_load(sm, G, g + d), mod);
-    __syncthreads();
-  }
-  // 3) m X + Y in lane 0 (m a power of two: log2 m doublings)
-  if (g == 0) {
-    for (int s = m; s > 1; s >>= 1) x = ec_double(x, mod);
-    pt_store(ox, oy, oz, R, r, ec_add(x, y, mod, one));
-  }
-}
-
 extern "C" int wh2_msm_interior(const void* pts, const void* sdig, const void* order, int R,
                                 int S, int K, int nb, void* bx, void* by, void* bz, void* fx,
                                 void* fy, void* fz, void* seg, const uint32_t* p_words,
@@ -430,21 +344,5 @@ extern "C" int wh2_msm_scan(const void* ix, const void* iy, const void* iz, void
   msm_scan_join_kernel<<<(unsigned)((jt + JOIN_THREADS - 1) / JOIN_THREADS), JOIN_THREADS, 0, s>>>(
       (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (const int*)seg, (const int*)head_tail, R, M,
       tiles, ls, m);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int wh2_msm_combine(const void* bx, const void* by, const void* bz, void* ox,
-                               void* oy, void* oz, int R, int nb, int G,
-                               const uint32_t* p_words, uint32_t n0, const uint32_t* one_words,
-                               void* stream) {
-  if (G < 1 || G > COMBINE_MAX_G || nb % G) return (int)cudaErrorInvalidValue;
-  const int smem = 3 * NW * G * (int)sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(msm_combine_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  msm_combine_kernel<<<(unsigned)R, G, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)bz, (uint32_t*)ox,
-      (uint32_t*)oy, (uint32_t*)oz, R, nb, nb / G, make_modulus(p_words, n0),
-      make_fe(one_words));
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
-SOURCES = ("montmul", "ntt", "msm", "ec", "mxu")
+SOURCES = ("montmul", "ntt", "msm", "combine", "ec", "mxu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -40,8 +40,10 @@ _SIGNATURES = {
                          _P, _U32P, _U32, _U32P, _P],
     "wh2_msm_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U32P,
                      _U32, _U32P, _P],
-    "wh2_msm_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U32P, _U32,
-                        _U32P, _P],
+    "wh2_msm_combine_chunks": [_P, _P, _P, _P, _I, _I, _I, _U32P, _U32, _U32P,
+                               _P],
+    "wh2_msm_combine_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _U32P, _U32,
+                             _U32P, _P],
     "wh2_ec_add_unsafe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _U32P,
                           _U32, _P],
     "wh2_mxu_montmul": [_P, _P, _P, _LL, _P, _P, _P, _U32P, _U32, _U32,

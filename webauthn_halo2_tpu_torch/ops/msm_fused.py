@@ -16,30 +16,39 @@ of MSM b:
   4. the scan kernels: a segmented reduction of the 2K fragments, each
      segment's total at its last fragment (its tail);
   5. the scatter of each segment's tail into its bucket;
-  6. the combine kernel: sum_b b * B_b per row over an (m, G) chunking;
+  6. the combine kernels: sum_b b * B_b per row, a chunk pass over G
+     chunks of m buckets, then a reduction of the chunk partials per row
+     (csrc/combine.cu; bounded by operations, and where a batch has few
+     rows by the latency of the row reduction's chain of dependent adds,
+     which the design keeps to about 25 adds);
   7. the (R,) window sums to the host, and the Horner fold on host ints.
 
-The window sums are those of the JAX pipeline, word for word. What steps
-3 and 4 return differs in two ways:
+The window sums are the JAX pipeline's points; their Jacobian words may
+differ. What steps 3, 4 and 6 return differs in three ways:
   * Points whose digit is 0 contribute nothing: bucket 0, and every
-    fragment labelled with digit 0, hold infinity. The combine never reads
-    bucket 0 (as in the JAX `_combine_kernel`): B_0 enters only chunk 0's
-    total T_0, T_0 only the suffix E'_0, the window sum takes
-    m * sum_{g >= 1} E'_g, and each weighted sum W_g adds run_i for i >= 1
-    only. The segment ids are the JAX ids, and every digit != 0 gets the
-    same adds in the same order, so its buckets and fragments are the same
-    words.
+    fragment labelled with digit 0, hold infinity. The combine gives
+    bucket 0 no weight (as the JAX `_combine_kernel` does): B_0 enters only
+    chunk 0's total T_0, T_0 only the first row thread's total and its
+    suffix E_0, which the window sum leaves out, and each weighted sum adds
+    run_i for i >= 1 only. The segment ids are the JAX ids, and every
+    digit != 0 gets the same adds in the same order, so its buckets and
+    fragments are the same words.
   * The scan returns segment totals, not an inclusive scan: at the tail of
     each segment with a nonzero digit its total, at a digit-0 tail
     infinity; other positions are unspecified, and `scatter_tails` reads
     none of them. The adds associate otherwise than the serial engine's
     Hillis-Steele scan, so a total may be another Jacobian representative
     of the same point.
+  * The combine spreads a row over the card in two stages (a chunk pass,
+    then a reduction of the chunk partials per row; `combine_plain`), so
+    it associates the adds otherwise than the JAX kernel's single (m, G)
+    pass, and a window sum may be another representative of the same
+    point.
 
 Each kernel's wrapper sits beside its plain PyTorch version of the same
 function, word for word, and counts its launches in `LAUNCHES`. The
 wrappers take the plain version only for a CPU tensor; for a CUDA tensor
-they launch csrc/msm.cu or raise.
+they launch csrc/msm.cu (interior, scan) and csrc/combine.cu or raise.
 
 PRECONDITION (as in the JAX package): the base points are affine
 (Z = one) and pairwise distinct, as SRS bases are; runs and fragments are
@@ -57,7 +66,12 @@ from . import msm as MS
 from .ec import CurveSpec, JPoint
 
 DEFAULT_K_LANES = 2048
-COMBINE_G = 512
+# the combine's chunking (csrc/combine.cu): G chunks of nb / G buckets a row,
+# one stage-1 thread each; a row's stage-2 block has COMBINE_ROW_THREADS
+# threads (the kernel's most). Chosen by measurement on a proof's commit
+# batches (scripts/sweep_torch_kernels.py).
+COMBINE_G = 1024
+COMBINE_ROW_THREADS = 256
 # the scan's tiling (csrc/msm.cu SCAN_CHUNK, SCAN_THREADS): a tile of
 # SCAN_TILE fragments a block
 SCAN_CHUNK = 4
@@ -291,76 +305,114 @@ def scatter_tails(buckets: JPoint, merged: JPoint, seg: torch.Tensor) -> None:
 # --- combine: sum_b b * B_b ---------------------------------------------
 
 def _combine_shape(nb: int) -> tuple[int, int]:
+    """(G, m): G chunks of m buckets a row, one stage-1 thread each."""
     G = min(COMBINE_G, nb)
     return G, nb // G
 
 
-def combine_plain(curve: CurveSpec, buckets: JPoint) -> JPoint:
-    """Plain version of the combine kernel: buckets (8, R, nb) -> (8, R).
+def _row_shape(G: int) -> tuple[int, int]:
+    """(P, q): a row's stage-2 block has P threads, which fold q of its G
+    chunk partials each."""
+    P = min(COMBINE_ROW_THREADS, G)
+    return P, G // P
 
-    sum_b b B_b = m sum_{g >= 1} E'_g + sum_g W_g over b = g m + i, with
-    T_g the chunk totals, E' their inclusive suffix over g, and W_g the
-    within-chunk weighted sums (msm_pallas._combine_kernel)."""
+
+def _fold_from_top(curve: CurveSpec, part, k: int, inf: JPoint):
+    """Over part(k - 1), ..., part(0): the running sum (unsafe adds, its
+    operands are sums of disjoint ranges) and the weighted sum
+    sum_{i >= 1} run_i = sum_i i part(i) (complete adds: a running sum
+    repeats where part(i) is infinity). Infinity as the weighted sum for
+    k = 1."""
+    run = part(k - 1)
+    w = run if k > 1 else inf
+    for i in range(k - 2, 0, -1):
+        run = E.add_unsafe(curve, run, part(i))
+        w = E.add(curve, w, run)
+    if k > 1:
+        run = E.add_unsafe(curve, run, part(0))
+    return run, w
+
+
+def combine_plain(curve: CurveSpec, buckets: JPoint) -> JPoint:
+    """Plain version of the combine kernels: buckets (8, R, nb) -> (8, R),
+    sum_b b B_b, with the adds of csrc/combine.cu in the same order.
+
+    Stage 1, chunk g of buckets g m .. g m + m - 1: its total T_g and
+    W_g = sum_i i B_{g m + i}, folded from the top. Stage 2, with
+    X = sum_g g T_g and Y = sum_g W_g the sum is m X + Y: row thread t folds
+    partials t q .. t q + q - 1 from the top into T'_t, L_t =
+    sum_j j T_{t q + j} and Y_t = sum_j W_{t q + j}; an inclusive
+    Hillis-Steele suffix of the T'_t gives E_t, and since
+    X = q sum_{t >= 1} E_t + sum_t L_t, the sum is the total of
+    U_t = m q E_t (t >= 1) + (m L_t + Y_t), one tree over the threads."""
     R, nb = buckets.x.shape[1:]
     G, m = _combine_shape(nb)
+    P, q = _row_shape(G)
     dev = buckets.x.device
     add_u = lambda a, b: E.add_unsafe(curve, a, b)  # noqa: E731
     add_c = lambda a, b: E.add(curve, a, b)  # noqa: E731
+
+    # 1) chunk pass
     ch = JPoint(*(c.reshape(W, R, G, m) for c in buckets))
+    tot, wgt = _fold_from_top(curve, lambda i: MS._pt_cols(ch, i), m,
+                              E.infinity((R, G), curve, dev))
 
-    def bucket(i):
-        return JPoint(*(c[..., i] for c in ch))
+    # 2) row threads: fold q partials each
+    tq = JPoint(*(c.reshape(W, R, P, q) for c in tot))
+    wq = JPoint(*(c.reshape(W, R, P, q) for c in wgt))
+    inf = E.infinity((R, P), curve, dev)
+    run, l = _fold_from_top(curve, lambda j: MS._pt_cols(tq, j), q, inf)
+    y = MS._pt_cols(wq, q - 1)
+    for j in range(q - 2, -1, -1):
+        y = add_u(y, MS._pt_cols(wq, j))
+    lane = torch.arange(P, device=dev).expand(R, P)
 
-    inf = E.infinity((R, G), curve, dev)
-    run = bucket(m - 1)
-    w = run
-    for i in range(m - 2, 0, -1):
-        run = add_u(run, bucket(i))
-        w = add_c(w, run)
-    if m > 1:
-        run = add_u(run, bucket(0))
-    if m == 1:
-        w = inf
-    lane = torch.arange(G, device=dev).expand(R, G)
-
-    def shifted(p, d):  # lane g sees lane g + d (wrapping, masked by callers)
+    def shifted(p, d):  # lane t sees lane t + d (wrapping, masked by callers)
         return JPoint(*(torch.roll(c, -d, dims=-1) for c in p))
 
     e = run
     d = 1
-    while d < G:
-        e = E.point_select(lane < G - d, add_u(e, shifted(e, d)), e)
+    while d < P:
+        e = E.point_select(lane < P - d, add_u(e, shifted(e, d)), e)
         d *= 2
-    x = E.point_select(lane == 0, inf, e)
-    y = w
-    d = G // 2
+
+    def times(p, k):  # k a power of two: log2 k doublings
+        while k > 1:
+            p = E.double(curve, p)
+            k //= 2
+        return p
+
+    u = E.point_select(lane == 0, inf, times(e, m * q))
+    u = add_c(u, add_c(times(l, m), y))
+    d = P // 2
     while d >= 1:
-        x = E.point_select(lane < d, add_c(x, shifted(x, d)), x)
-        y = E.point_select(lane < d, add_u(y, shifted(y, d)), y)
+        u = E.point_select(lane < d, add_c(u, shifted(u, d)), u)
         d //= 2
-    x = JPoint(*(c[..., 0] for c in x))
-    y = JPoint(*(c[..., 0] for c in y))
-    s = m
-    while s > 1:
-        x = E.double(curve, x)
-        s //= 2
-    return add_c(x, y)
+    return JPoint(*(c[..., 0] for c in u))
 
 
 def combine_cuda(curve: CurveSpec, buckets: JPoint) -> JPoint:
-    """The combine kernel of csrc/msm.cu: buckets (8, R, nb) -> (8, R)."""
+    """The combine kernels of csrc/combine.cu (the chunk pass, then the row
+    reduction: two launches, one wrapper call counted): buckets (8, R, nb)
+    -> (8, R)."""
     buckets = JPoint(*(c.contiguous() for c in buckets))
     _check_cuda("msm combine", *buckets)
     R, nb = buckets.x.shape[1:]
     G, _ = _combine_shape(nb)
+    P, _ = _row_shape(G)
     dev = buckets.x.device
     out = JPoint(*(torch.empty((W, R), dtype=torch.int32, device=dev)
                    for _ in range(3)))
+    part = torch.empty((6, W, R * G), dtype=torch.int32, device=dev)
     f = curve.field
-    rc = K.lib("msm").wh2_msm_combine(
-        *(c.data_ptr() for c in buckets), *(c.data_ptr() for c in out), R, nb,
-        G, K.modulus_words(f), f.n0, K.one_words(f), K.stream_ptr(dev))
-    K.check(rc, "msm combine kernel")
+    lib = K.lib("combine")
+    consts = (K.modulus_words(f), f.n0, K.one_words(f), K.stream_ptr(dev))
+    rc = lib.wh2_msm_combine_chunks(*(c.data_ptr() for c in buckets),
+                                    part.data_ptr(), R, nb, G, *consts)
+    K.check(rc, "msm combine chunk kernel")
+    rc = lib.wh2_msm_combine_rows(part.data_ptr(), *(c.data_ptr() for c in out),
+                                  R, nb, G, P, *consts)
+    K.check(rc, "msm combine row kernel")
     LAUNCHES["msm_combine"] += 1
     return out
 
