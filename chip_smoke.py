@@ -13,8 +13,10 @@ Phases, one or more lines each:
      (8, 1) operand on either side, slices of a stacked (8, 3, n) tensor,
      ragged sizes; then its warm and cold times at (8, 2^19) from CUDA
      graph replays, with the SM clock and power draw; every other time is
-     from CUDA events over launches from Python: `timed_by`), NTT stages A
-     and B, the v3 MSM kernels (interior, scan, combine) at n = 2^17,
+     from CUDA events over launches from Python: `timed_by`), NTT stage A
+     at each launch shape of the proof's transforms ((1, 2^17), (1, 2^19),
+     (19, 2^17), (19, 2^19)) with the tiles its schedule gives it, stage
+     B, the v3 MSM kernels (interior, scan, combine) at n = 2^17,
      c = 13, 20 windows x 9 rows (the scan at the segment tails, the only
      positions it defines), the three again at the
      v1 route's 20 rows, the combine on mostly empty buckets (one row with
@@ -22,9 +24,10 @@ Phases, one or more lines each:
      MSMs that also meet the host oracle: small ones at n = 2^12, and at
      n = 2^17 columns with long nonzero segments (all ones, 0/1 selectors,
      16-bit values, zeros with 8 random tail rows) that also meet the
-     serial engine; the fused EC add at the serial route's grow shape with
-     infinities on either side; the int8 tensor-core montmul (one mma tile
-     against a host product first) at (8, 2^19) against its plain version
+     serial engine; the fused EC add at the serial route's grow shape
+     (R, K) and its scan's (R, 2K) with infinities on either side; the
+     int8 tensor-core montmul (one mma tile against a host product first)
+     at (8, 2^19) against its plain version
      and the montmul kernel, edge words included, driven once through its
      entry point with the counts from zero;
   3. a full k=17 MSM batch through the v3 pipeline equals the serial
@@ -49,7 +52,9 @@ Phases, one or more lines each:
      is byte-identical;
   8. the same proof through the v1 driver (interior and combine kernels,
      the plain boundary scan of fused EC adds, the device Horner) is
-     byte-identical, and the scan kernels are not launched;
+     byte-identical, and the scan kernels are not launched; the fused EC
+     add's launch shapes on both routes are recorded and replayed, summed
+     over each route's proof (`routes` of its row);
   9. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
@@ -280,27 +285,28 @@ def phase_kernels(dev, gen):
             fail(f"intt(ntt(x)) != x at k={k}, batch {B}")
         log(f"[kernels] intt(ntt(x)) == x at k={k} batch={B}")
 
-    # each NTT kernel alone, at the quotient's conversion shape: a stack of
-    # 19 columns on the extended domain 2^19
-    ek, B = 19, 19
-    n = 1 << ek
-    x = _rand_words(FR_SPEC, (B, n), gen, dev)
-    tw = N._twiddles_dev(ek, False, dev)
-    log_t = N.T_LOG_MAX
-    got = N.stage_a(FR_SPEC, x, tw, log_t)
-    want = N.stage_a_plain(FR_SPEC, x, tw, log_t)
-    torch.cuda.synchronize()
-    err_a = _max_abs_err(got, want)
-    log(f"[kernels] stage A (8, {B}, 2^{ek}) T=2^{log_t}: max_abs_err={err_a}")
-    if err_a:
-        fail("NTT stage A disagrees with its plain version")
-    butterflies = B * (n // 2) * log_t
+    # stage A at every launch shape of the proof's transforms, with the
+    # tiles the schedule gives it; timed at the quotient's conversion
+    # shape, a stack of 19 columns on the extended domain 2^19 (last)
+    errs = []
+    for B, ek in ((1, 17), (1, 19), (19, 17), (19, 19)):
+        n = 1 << ek
+        x = _rand_words(FR_SPEC, (B, n), gen, dev)
+        tw = N._twiddles_dev(ek, False, dev)
+        log_t, cq = N.stage_a_schedule(B, ek)
+        got = N.stage_a(FR_SPEC, x, tw, log_t, cq)
+        want = N.stage_a_plain(FR_SPEC, x, tw, log_t)
+        torch.cuda.synchronize()
+        errs.append(_max_abs_err(got, want))
+        shape = f"(8, {B}, 2^{ek}), T=2^{log_t} (blocks of 2^{log_t - cq}, clusters of {1 << cq})"
+        log(f"[kernels] stage A {shape}: max_abs_err={errs[-1]}")
+        if errs[-1]:
+            fail("NTT stage A disagrees with its plain version")
     rows["ntt_stage_a"] = dict(
-        err=err_a, shape=f"(8, {B}, 2^{ek}), T=2^{log_t}",
-        ms=_events_ms(lambda: N.stage_a(FR_SPEC, x, tw, log_t), 10),
+        err=max(errs), shape=shape,
+        ms=_events_ms(lambda: N.stage_a(FR_SPEC, x, tw, log_t, cq), 10),
         plain_ms=_events_ms(lambda: N.stage_a_plain(FR_SPEC, x, tw, log_t), 1),
-        bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * ((1 << log_t) - 1),
-        ops=IMAD_PER_MONTMUL * butterflies)
+        **_stage_a_work(B, n, log_t))
     s = log_t
     got = N.stage_b(FR_SPEC, x, tw, s)
     want = N.stage_b_plain(FR_SPEC, x, tw, s)
@@ -313,9 +319,22 @@ def phase_kernels(dev, gen):
         err=err_b, shape=f"(8, {B}, 2^{ek}), h=2^{s}",
         ms=_events_ms(lambda: N.stage_b(FR_SPEC, x, tw, s), 20),
         plain_ms=_events_ms(lambda: N.stage_b_plain(FR_SPEC, x, tw, s), 2),
-        bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * (1 << s),
-        ops=IMAD_PER_MONTMUL * B * (n // 2))
+        **_stage_b_work(B, n, s))
     return rows
+
+
+# A butterfly of stage s whose twiddle is w^0 = 1 (j = 0, one in 2^s of
+# them) needs no multiply: the least work of the NTT stages counts the
+# others only.
+def _stage_a_work(B: int, n: int, log_t: int) -> dict:
+    mults = sum(B * (n // 2) - B * (n >> (s + 1)) for s in range(log_t))
+    return dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * ((1 << log_t) - 1),
+                ops=IMAD_PER_MONTMUL * mults)
+
+
+def _stage_b_work(B: int, n: int, s: int) -> dict:
+    return dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * (1 << s),
+                ops=IMAD_PER_MONTMUL * (B * (n // 2) - B * (n >> (s + 1))))
 
 
 def _pt_err(a, b) -> int:
@@ -682,15 +701,18 @@ def _launch_recorder(module, name: str, key, seen: list):
     return lambda: setattr(module, name, orig)
 
 
-def phase_launch_shapes(dev, gen, shapes: dict) -> dict:
-    """Rows 1-3 on the proof's own launches: for each launch shape the main
-    path's proof gave the montmul and NTT kernels (recorded on its way), its
-    count, its bound, and its time replayed on random words (CUDA graph
-    replays); summed over the proof. Returns per kernel (ms, bound ms,
+def phase_launch_shapes(dev, gen, shapes: dict, srs=None) -> dict:
+    """Rows 1-3 and 8 on a proof's own launches: for each launch shape the
+    proof gave the montmul and NTT kernels (the main path's) or the fused
+    EC add (the serial and v1 routes'), recorded on its way, its count, its
+    bound, and its time replayed on random operands (CUDA graph replays;
+    the EC add on chip_smoke's operands, about a tenth infinite on each
+    side); summed over the proof. Returns per kernel (ms, bound ms,
     histogram)."""
     from collections import Counter
 
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
     from webauthn_halo2_tpu_torch.ops import modops as M
     from webauthn_halo2_tpu_torch.ops import ntt as N
 
@@ -707,18 +729,21 @@ def phase_launch_shapes(dev, gen, shapes: dict) -> dict:
                 fn = lambda: M.montmul_cuda(FR_SPEC, a, b)  # noqa: E731
                 work = dict(bytes=ELEM_BYTES * ((1 if a_bc else n) + (1 if b_bc else n) + n),
                             ops=IMAD_PER_MONTMUL * n)
+            elif name == "ec_add_unsafe":
+                rows_, lanes = key
+                p, q, adds = _ec_operands(srs, gen, dev, rows_, lanes)
+                fn = lambda: E.add_unsafe_cuda(E.BN254_CURVE, p, q)  # noqa: E731
+                work = _ec_work(rows_, lanes, adds)
             else:
-                B, n, s = key
+                B, n, s = key[:3]
                 x = _rand_words(FR_SPEC, (B, n), gen, dev)
                 tw = N._twiddles_dev(n.bit_length() - 1, False, dev)
                 if name == "ntt_stage_a":
-                    fn = lambda: N.stage_a(FR_SPEC, x, tw, s)  # noqa: E731
-                    work = dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * ((1 << s) - 1),
-                                ops=IMAD_PER_MONTMUL * B * (n // 2) * s)
+                    fn = lambda: N.stage_a(FR_SPEC, x, tw, s, key[3])  # noqa: E731
+                    work = _stage_a_work(B, n, s)
                 else:
                     fn = lambda: N.stage_b(FR_SPEC, x, tw, s)  # noqa: E731
-                    work = dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * (1 << s),
-                                ops=IMAD_PER_MONTMUL * B * (n // 2))
+                    work = _stage_b_work(B, n, s)
             ms = _graph_ms(fn, calls=10, replays=5)
             bound = _bound_ms(work)[0]
             ms_sum += count * ms
@@ -732,10 +757,10 @@ def phase_launch_shapes(dev, gen, shapes: dict) -> dict:
     return out
 
 
-def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
-    """Phase 2, row 8: the fused EC add against `add_unsafe` at the serial
-    route's grow shape (8, R, K): Jacobian sums of two SRS points plus
-    affine SRS points, about a tenth infinite on each side."""
+def _ec_operands(srs, gen, dev, nrows: int, lanes: int):
+    """Operands of the fused EC add at (8, nrows, lanes): Jacobian sums of
+    two SRS points plus affine SRS points, about a tenth infinite on each
+    side. Returns (p, q, number of adds of two finite points)."""
     from webauthn_halo2_tpu_torch.ops import ec as E
 
     curve = E.BN254_CURVE
@@ -757,21 +782,37 @@ def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
         z = torch.where(inf[None], 0, pt.z)
         return E.JPoint(*(c.reshape(8, nrows, lanes) for c in (pt.x, pt.y, z)))
 
-    p, q = shaped(p, inf_p), shaped(q, inf_q)
-    got = E.add_unsafe_cuda(curve, p, q)
-    want = E.add_unsafe(curve, p, q)
-    torch.cuda.synchronize()
-    err = _pt_err(got, want)
-    adds = int((~inf_p & ~inf_q).sum().item())
-    shape = (f"(8, {nrows}, {lanes}), {int(inf_p.sum())} + {int(inf_q.sum())} "
-             f"infinite operands, {adds} adds")
-    log(f"[kernels] ec_add_unsafe {shape}: max_abs_err={err}")
-    if err:
-        fail("the fused EC add disagrees with add_unsafe")
-    return dict(err=err, shape=shape,
+    return shaped(p, inf_p), shaped(q, inf_q), int((~inf_p & ~inf_q).sum().item())
+
+
+def _ec_work(nrows: int, lanes: int, adds: int) -> dict:
+    return dict(bytes=9 * ELEM_BYTES * nrows * lanes, ops=IMAD_PER_JADD * adds)
+
+
+def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
+    """Phase 2, row 8: the fused EC add against `add_unsafe` at the serial
+    route's grow shape (8, R, K) and its boundary scan's (8, R, 2K), with
+    infinities on either side; timed at the grow shape."""
+    from webauthn_halo2_tpu_torch.ops import ec as E
+
+    curve = E.BN254_CURVE
+    errs = []
+    for width in (2 * lanes, lanes):
+        p, q, adds = _ec_operands(srs, gen, dev, nrows, width)
+        got = E.add_unsafe_cuda(curve, p, q)
+        want = E.add_unsafe(curve, p, q)
+        torch.cuda.synchronize()
+        errs.append(_pt_err(got, want))
+        n_inf = [int((~(c.z != 0).any(dim=0)).sum()) for c in (p, q)]
+        shape = (f"(8, {nrows}, {width}), {n_inf[0]} + {n_inf[1]} "
+                 f"infinite operands, {adds} adds")
+        log(f"[kernels] ec_add_unsafe {shape}: max_abs_err={errs[-1]}")
+        if errs[-1]:
+            fail("the fused EC add disagrees with add_unsafe")
+    return dict(err=max(errs), shape=shape,
                 ms=_events_ms(lambda: E.add_unsafe_cuda(curve, p, q), 20),
                 plain_ms=_events_ms(lambda: E.add_unsafe(curve, p, q), 3),
-                bytes=9 * ELEM_BYTES * n, ops=IMAD_PER_JADD * adds)
+                **_ec_work(nrows, lanes, adds))
 
 
 def phase_mxu(dev, gen, logn: int = 19):
@@ -1040,8 +1081,8 @@ def main() -> int:
         _launch_recorder(M, "montmul_cuda", lambda spec, a, b, *_, **__: (
             max(a[0].numel(), b[0].numel(), torch.broadcast_shapes(a.shape, b.shape)[1:].numel()),
             a.numel() == 8, b.numel() == 8), launch_shapes["montmul"]),
-        _launch_recorder(N, "stage_a", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
-                         launch_shapes["ntt_stage_a"]),
+        _launch_recorder(N, "stage_a", lambda spec, x, tw, log_t, cq=0: (
+            x.shape[1], x.shape[2], log_t, cq), launch_shapes["ntt_stage_a"]),
         _launch_recorder(N, "stage_b", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
                          launch_shapes["ntt_stage_b"])]
     t0 = time.time()
@@ -1087,20 +1128,30 @@ def main() -> int:
     del batches
     for name, (ms, bound, table) in phase_launch_shapes(dev, gen, launch_shapes).items():
         rows[name].update(proof_ms=ms, proof_bound_ms=bound, proof_launch_shapes=table)
+    log("[proof launches] NTT stages A and B over the proof: " + json.dumps({
+        "ms": rows["ntt_stage_a"]["proof_ms"] + rows["ntt_stage_b"]["proof_ms"],
+        "bound_ms": rows["ntt_stage_a"]["proof_bound_ms"]
+        + rows["ntt_stage_b"]["proof_bound_ms"]}))
 
     # 7. the same proof on the serial route: byte for byte, every point add
     #    through the fused EC add
-    def prove_on(engine):
+    # the fused EC add's launch shapes on each of the other two routes
+    ec_shapes = {"serial": [], "v1": []}
+
+    def prove_on(engine, route):
         KG.MSM_ENGINE = engine
+        undo = _launch_recorder(E, "add_unsafe_cuda", lambda curve, p, q: tuple(
+            torch.broadcast_shapes(*(t.shape for t in (*p, *q)))[1:]), ec_shapes[route])
         try:
             zero_counts()
             t0 = time.time()
             out = prove()
             return out, time.time() - t0, counts()
         finally:
+            undo()
             KG.MSM_ENGINE = MF
 
-    serial_proof, serial_s, serial = prove_on(MS)
+    serial_proof, serial_s, serial = prove_on(MS, "serial")
     log(f"[serial] proof on the serial route in {serial_s:.1f}s: identical bytes: "
         f"{serial_proof == proof}; launches {json.dumps(serial)}")
     if serial_proof != proof:
@@ -1110,7 +1161,7 @@ def main() -> int:
             fail(f"the serial route ran no {name}")
 
     # 8. the same proof through the v1 driver: byte for byte
-    v1_proof, v1_s, v1 = prove_on(MV)
+    v1_proof, v1_s, v1 = prove_on(MV, "v1")
     log(f"[v1] proof on the v1 route in {v1_s:.1f}s: identical bytes: "
         f"{v1_proof == proof}; launches {json.dumps(v1)}")
     if v1_proof != proof:
@@ -1120,6 +1171,16 @@ def main() -> int:
             fail(f"the v1 route launched no {name}")
     if v1["msm_scan"] or v1["serial_bucket_sums"]:
         fail("the v1 route ran the scan kernel or the serial bucket sum")
+
+    # row 8 on each route's own launches, replayed
+    routes = {}
+    for route, seen in ec_shapes.items():
+        ms, bound, table = phase_launch_shapes(
+            dev, gen, {"ec_add_unsafe": seen}, srs)["ec_add_unsafe"]
+        routes[route] = dict(launches=len(seen), ms=ms, bound_ms=bound, launch_shapes=table)
+        log(f"[route launches] ec_add_unsafe on the {route} route: {len(seen)} launches, "
+            f"replayed {ms:.4f} ms against a bound of {bound:.4f} ms")
+    rows["ec_add_unsafe"]["routes"] = routes
 
     # 9. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
@@ -1155,8 +1216,8 @@ def main() -> int:
             "launches_by_path": {p: c.get(counter, 0) for p, c in by_path.items()
                                  if counter in c},
             "launches_per_proof": per_proof.get(counter) if path == "v3" else None,
-            **{k: row[k] for k in ("batches", "ms_cold", "clocks", "proof_launch_shapes")
-               if k in row},
+            **{k: row[k] for k in ("batches", "ms_cold", "clocks", "proof_launch_shapes",
+                                   "routes") if k in row},
         })
     log(f"[total] {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Measurements behind the design of the montmul and combine kernels of the
-PyTorch/CUDA port, on one CUDA card, that chip_smoke.py does not make.
+"""Measurements behind the design of the port's redesigned kernels (the
+montmul, the combine, NTT stage A and the fused EC add), on one CUDA card,
+that chip_smoke.py does not make.
 
-    python3 scripts/sweep_torch_kernels.py [--parent DIR] [--grid 1024:128,1024:256]
-                                           [--rounds 5] [--out build/sweep_kernels.json]
+    python3 scripts/sweep_torch_kernels.py [--parent DIR] [--parts sass,ntt,ec,montmul,combine]
+                                           [--grid 1024:128,1024:256] [--rounds 5]
+                                           [--out build/sweep_kernels.json]
 
-1. SASS of the montmul kernel: `cuobjdump -sass` of the built library, for
-   each instantiation its instructions by opcode and per multiply. With
-   --parent (the root of an earlier tree of the repository whose kernels
-   were built there, under build/kernels), the same for its library.
-2. With --parent, that tree's montmul kernel against this one at (8, 2^19),
-   warm (the same operands every call) and cold (four operand sets in
-   turn, 192 MB), in turns (parent, this, this, parent), from CUDA graph
-   replays, with the SM clock and power draw beside each time.
-3. The combine's chunking on the proof's own commit batches: keys the
-   default circuit, proves chip_smoke's signature once on the v3 route
+1. sass: SASS of the montmul, stage-A and EC-add kernels, `cuobjdump -sass`
+   of the built libraries, for each instantiation its instructions by
+   opcode. With --parent (the root of an earlier tree of the repository,
+   e.g. a `git archive` unpacked into build/parent; its kernels are built
+   there with its own build module when missing), the same for its
+   libraries.
+2. ntt: stage A at each launch shape of a k=17 proof (PROOF_NTT_LAUNCHES),
+   for every schedule the kernel takes (block tiles of 2^9 to 2^12, in
+   clusters of 1 to 4 blocks) and, with --parent, the parent's stage A at
+   its 2^12 tile, in turns over --rounds rounds (the order reversed every
+   other round), from CUDA graph replays: stage A alone and stage A with
+   the stage-B launches that finish the transform. Every schedule's
+   transform equals the first one's word for word.
+3. ec: the fused EC add at the serial and v1 routes' shapes (EC_SHAPES,
+   chip_smoke's operands: about a tenth infinite on each side), this tree's
+   kernel and, with --parent, the parent's, in turns, from CUDA graph
+   replays; each equal to `add_unsafe` word for word.
+4. montmul (needs --parent): the parent's montmul kernel against this one
+   at (8, 2^19), warm (the same operands every call) and cold (four
+   operand sets in turn, 192 MB), in turns (parent, this, this, parent),
+   from CUDA graph replays, with the SM clock and power draw beside each.
+5. combine: the combine's chunking on the proof's own commit batches: keys
+   the default circuit, proves chip_smoke's signature once on the v3 route
    recording each commit batch (chip_smoke's recording hook), builds each
    batch's buckets with chip_smoke's `_msm_stages` (which checks the
    combine against combine_plain), then times both launches of the
    combine, and each apart, for every (G, P) of --grid (G chunks a row, P
-   row threads), --rounds times in turns, the order reversed every other
-   round. Every configuration's window sums equal the built default's as
-   affine points.
+   row threads), --rounds times in turns. Every configuration's window
+   sums equal the built default's as affine points.
 Prints one JSON line per part and writes them all to --out. Needs one card.
 """
 from __future__ import annotations
@@ -51,17 +65,17 @@ def _cuobjdump() -> str:
     return str(Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
 
 
-def sass_counts(lib: Path) -> dict:
-    """Per montmul kernel instantiation of `lib`: instructions in all (one
-    multiply each), by opcode, with the integer multiply-adds (IMAD, not
-    IMAD.MOV) apart."""
+def sass_counts(lib: Path, kernel: str) -> dict:
+    """Per instantiation of the kernels of `lib` whose name holds `kernel`:
+    instructions in all, by opcode, with the integer multiply-adds (IMAD,
+    not IMAD.MOV) apart."""
     text = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     out, name, ops = {}, None, None
     for line in text.splitlines():
         if m := re.search(r"Function : (\S+)", line):
             name, ops = m.group(1), collections.Counter()
-            if "montmul_kernel" in name:
+            if kernel in name:
                 out[name] = ops
         elif name and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)):
             ops[m.group(1)] += 1
@@ -72,6 +86,162 @@ def sass_counts(lib: Path) -> dict:
             for name, ops in out.items()}
 
 
+# (source, kernel name) of each kernel whose SASS part 1 counts
+SASS_KERNELS = (("montmul", "montmul_kernel"), ("ntt", "ntt_stage_a_kernel"),
+                ("ec", "ec_add_unsafe_kernel"))
+
+
+def parent_library(parent: Path, name: str) -> Path:
+    """The parent tree's built library `name`, built there (with the
+    parent's own build module, in a process of its own) when missing."""
+    libs = sorted((parent / "build" / "kernels").glob(f"lib{name}_*.so"))
+    if not libs:
+        subprocess.run([sys.executable, "-c",
+                        "from webauthn_halo2_tpu_torch.ops import kernels as K; K.build_all()"],
+                       cwd=parent, check=True)
+        libs = sorted((parent / "build" / "kernels").glob(f"lib{name}_*.so"))
+    if not libs:
+        raise SystemExit(f"no built {name} library under {parent}/build/kernels")
+    return libs[0]
+
+
+def _load(path: Path, fn: str, argtypes: list) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    getattr(lib, fn).argtypes = argtypes
+    getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _median(vals):
+    return sorted(vals)[len(vals) // 2]
+
+
+def _turns(calls: dict, rounds: int, graph_calls: int, replays: int) -> dict:
+    """ms a call of each of `calls`, from CUDA graph replays, `rounds` times
+    in turns (the order reversed every other round): median and all."""
+    import chip_smoke as CS
+
+    names = list(calls)
+    times = {k: [] for k in names}
+    for rnd in range(rounds):
+        for k in (names if rnd % 2 == 0 else names[::-1]):
+            times[k].append(CS._graph_ms(calls[k], calls=graph_calls, replays=replays))
+            torch.cuda.empty_cache()
+    return {k: dict(ms=_median(v), runs=v) for k, v in times.items()}
+
+
+# the NTT launch shapes of one k=17 proof on the v3 route, (B, k): launches
+# (chip_smoke's recording, PERF.md)
+PROOF_NTT_LAUNCHES = {(1, 17): 13, (1, 19): 1, (19, 17): 1, (19, 19): 1}
+
+
+def ntt_turns(parent: Path | None, dev, rounds: int) -> dict:
+    """Stage A (and stage A with the stage-B launches that finish the
+    transform) at each proof launch shape, for every schedule the kernel
+    takes with block tiles from 2^9 up, and the parent's at 2^12, in turns."""
+    import chip_smoke as CS
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    old = None
+    if parent:
+        old = _load(parent_library(parent, "ntt"), "wh2_ntt_stage_a",
+                    [K._P, K._P, K._P, K._LL, K._LL, K._LL, K._I, K._U32P, K._U32, K._P])
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = []
+    for (B, k), launches in PROOF_NTT_LAUNCHES.items():
+        n = 1 << k
+        x = CS._rand_words(FR_SPEC, (B, n), gen, dev)
+        tw = N._twiddles_dev(k, False, dev)
+        cands = {}
+        if old is not None:
+            def parent_a(x=x, tw=tw, B=B, n=n):
+                y = torch.empty_like(x)
+                K.check(old.wh2_ntt_stage_a(x.data_ptr(), y.data_ptr(), tw.data_ptr(),
+                                            tw.shape[1], B, n, 12, K.modulus_words(FR_SPEC),
+                                            FR_SPEC.n0, K.stream_ptr(dev)), "parent stage A")
+                return y
+            cands["parent T=2^12"] = (parent_a, 12)
+        for log_b in range(9, min(k, N.T_LOG_MAX) + 1):
+            for cq in range(min(N.CLUSTER_LOG_MAX, k - log_b) + 1):
+                cands[f"T=2^{log_b} C={1 << cq}"] = (
+                    lambda x=x, tw=tw, lt=log_b + cq, cq=cq: N.stage_a(FR_SPEC, x, tw, lt, cq),
+                    log_b + cq)
+
+        def whole(fn, log_t, x=x, tw=tw, k=k):
+            y = fn()
+            for s in range(log_t, k):
+                y = N.stage_b(FR_SPEC, y, tw, s)
+            return y
+
+        ref = None
+        for name, (fn, log_t) in cands.items():
+            y = whole(fn, log_t)
+            if ref is None:
+                ref = y
+            elif not torch.equal(y, ref):
+                raise SystemExit(f"stage A {name} gives another transform at (B={B}, 2^{k})")
+        del ref, y
+        a_only = _turns({name: fn for name, (fn, _) in cands.items()}, rounds, 10, 5)
+        a_and_b = _turns({name: (lambda fn=fn, lt=lt: whole(fn, lt))
+                          for name, (fn, lt) in cands.items()}, rounds, 10, 5)
+        row = dict(shape=[B, k], launches=launches, stage_a=a_only, stage_a_and_b=a_and_b,
+                   schedule=list(N.stage_a_schedule(B, k)))
+        out.append(row)
+        print(json.dumps({"ntt": {"shape": [B, k], **{
+            name: [a_only[name]["ms"], a_and_b[name]["ms"]] for name in cands}}}), flush=True)
+    return dict(shapes=out)
+
+
+# the fused EC add's shapes (rows, lanes) on the serial route of a k=17
+# proof (grow (R, K), boundary scan (R, 2K), R = 20 a commitment of the
+# batch) and the v1 route (scan, one MSM: (20, 4096)), chip_smoke's
+# recording; and chip_smoke's checked shape, (180, 2048)
+EC_SHAPES = tuple((r, w) for r in (20, 40, 60, 140, 160) for w in (2048, 4096)) + ((180, 2048),)
+
+
+def ec_turns(parent: Path | None, dev, rounds: int) -> dict:
+    """The fused EC add at EC_SHAPES, this tree's and the parent's, in turns."""
+    import chip_smoke as CS
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.plonk.srs import get_srs
+
+    curve = E.BN254_CURVE
+    f = curve.field
+    srs = get_srs(17, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    libs = {"this": K.lib("ec")}
+    if parent:
+        libs["parent"] = _load(parent_library(parent, "ec"), "wh2_ec_add_unsafe",
+                               K._SIGNATURES["wh2_ec_add_unsafe"])
+    out = []
+    for rows, lanes in EC_SHAPES:
+        p, q, adds = CS._ec_operands(srs, gen, dev, rows, lanes)
+        p, q = (E.JPoint(*(c.contiguous() for c in pt)) for pt in (p, q))
+        n = rows * lanes
+
+        def call(lib, p=p, q=q, n=n):
+            o = E.JPoint(*(torch.empty_like(p.x) for _ in range(3)))
+            K.check(lib.wh2_ec_add_unsafe(*(t.data_ptr() for t in (*p, *q, *o)), n,
+                                          K.modulus_words(f), f.n0, K.stream_ptr(dev)), "EC add")
+            return o
+
+        want = E.add_unsafe(curve, p, q)
+        for name, lib in libs.items():
+            if CS._pt_err(call(lib), want):
+                raise SystemExit(f"the {name} EC add disagrees with add_unsafe at {(rows, lanes)}")
+        times = _turns({name: (lambda lib=lib: call(lib)) for name, lib in libs.items()},
+                       rounds, 20, 10)
+        row = dict(shape=[rows, lanes], adds=adds,
+                   bound_ms=CS._bound_ms(CS._ec_work(rows, lanes, adds))[0], times=times)
+        out.append(row)
+        print(json.dumps({"ec": {"shape": [rows, lanes], "bound_ms": row["bound_ms"],
+                                 **{k: v["ms"] for k, v in times.items()}}}), flush=True)
+    return dict(shapes=out)
+
+
 def montmul_turns(parent: Path, dev) -> dict:
     """The parent tree's montmul kernel and this tree's at (8, 2^19), warm
     and cold, in turns."""
@@ -80,12 +250,7 @@ def montmul_turns(parent: Path, dev) -> dict:
     from webauthn_halo2_tpu_torch.ops import kernels as K
     from webauthn_halo2_tpu_torch.ops import modops as M
 
-    libs = sorted((parent / "build" / "kernels").glob("libmontmul_*.so"))
-    if not libs:
-        raise SystemExit(f"no built montmul library under {parent}/build/kernels")
-    old = ctypes.CDLL(str(libs[0]))
-    old.wh2_montmul.argtypes = K._SIGNATURES["wh2_montmul"]
-    old.wh2_montmul.restype = ctypes.c_int
+    old = _load(parent_library(parent, "montmul"), "wh2_montmul", K._SIGNATURES["wh2_montmul"])
     gen = torch.Generator(device=dev).manual_seed(19)
     n = 1 << 19
     sets = [(CS._rand_words(FR_SPEC, (n,), gen, dev), CS._rand_words(FR_SPEC, (n,), gen, dev))
@@ -193,10 +358,7 @@ def combine_grid(dev, grid: list, rounds: int) -> dict:
         results.append(row)
         print(json.dumps(row), flush=True)
 
-    def median(vals):
-        return sorted(vals)[len(vals) // 2]
-
-    proof = {f"{G}:{P}": sum(median(x["ms"]) for r in results for x in r["configs"]
+    proof = {f"{G}:{P}": sum(_median(x["ms"]) for r in results for x in r["configs"]
                              if (x["G"], x["P"]) == (G, P)) for G, P in grid}
     return dict(batches=results, proof_median_ms=proof,
                 proof_bound_ms=sum(r["bound_ms"] for r in results))
@@ -205,10 +367,12 @@ def combine_grid(dev, grid: list, rounds: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
+    ap.add_argument("--parts", default="sass,ntt,ec,montmul,combine")
     ap.add_argument("--grid", default="512:256,1024:128,1024:256,2048:128,2048:256")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default="build/sweep_kernels.json")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -220,18 +384,27 @@ def main() -> int:
     report = {"card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()}
-    report["sass"] = {"this": sass_counts(K._so_path("montmul"))}
-    if args.parent:
-        libs = sorted((args.parent / "build" / "kernels").glob("libmontmul_*.so"))
-        report["sass"]["parent"] = sass_counts(libs[0])
-    print(json.dumps({"sass": report["sass"]}), flush=True)
-    if args.parent:
+    if "sass" in parts:
+        report["sass"] = {"this": {src: sass_counts(K._so_path(src), kern)
+                                   for src, kern in SASS_KERNELS}}
+        if args.parent:
+            report["sass"]["parent"] = {src: sass_counts(parent_library(args.parent, src), kern)
+                                        for src, kern in SASS_KERNELS}
+        print(json.dumps({"sass": {tree: {src: {k: v["instructions"] for k, v in kern.items()}
+                                          for src, kern in per.items()}
+                                   for tree, per in report["sass"].items()}}), flush=True)
+    if "ntt" in parts:
+        report["ntt"] = ntt_turns(args.parent, dev, args.rounds)
+    if "ec" in parts:
+        report["ec"] = ec_turns(args.parent, dev, args.rounds)
+    if "montmul" in parts and args.parent:
         report["montmul_turns"] = montmul_turns(args.parent, dev)
         print(json.dumps({"montmul_turns": report["montmul_turns"]}), flush=True)
-    grid = [tuple(int(v) for v in g.split(":")) for g in args.grid.split(",")]
-    report["combine"] = combine_grid(dev, grid, args.rounds)
-    print(json.dumps({"combine_proof_median_ms": report["combine"]["proof_median_ms"],
-                      "proof_bound_ms": report["combine"]["proof_bound_ms"]}), flush=True)
+    if "combine" in parts:
+        grid = [tuple(int(v) for v in g.split(":")) for g in args.grid.split(",")]
+        report["combine"] = combine_grid(dev, grid, args.rounds)
+        print(json.dumps({"combine_proof_median_ms": report["combine"]["proof_median_ms"],
+                          "proof_bound_ms": report["combine"]["proof_bound_ms"]}), flush=True)
     report["seconds"] = time.time() - t0
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))

@@ -103,22 +103,23 @@ __device__ __forceinline__ Pt ec_madd(const Pt& p, const Fe& x2, const Fe& y2, c
 #endif
 
 // The general Jacobian sum without any select; H and R come back for the
-// complete add. ops/ec.py `_add_core`.
+// complete add. ops/ec.py `_add_core`: 12 multiplies and 4 squares (EC_SQR
+// gives the words of EC_MUL(a, a), a fully reduced product being unique).
 __device__ EC_BODY Pt ec_add_core(const Pt& p, const Pt& q, const Modulus& m, Fe& h,
                                        Fe& r) {
-  Fe z1z1 = EC_MUL(p.z, p.z, m);
-  Fe z2z2 = EC_MUL(q.z, q.z, m);
+  Fe z1z1 = EC_SQR(p.z, m);
+  Fe z2z2 = EC_SQR(q.z, m);
   Fe u1 = EC_MUL(p.x, z2z2, m);
   Fe u2 = EC_MUL(q.x, z1z1, m);
   Fe s1 = EC_MUL(p.y, EC_MUL(q.z, z2z2, m), m);
   Fe s2 = EC_MUL(q.y, EC_MUL(p.z, z1z1, m), m);
   h = fe_sub(u2, u1, m);
   r = fe_sub(s2, s1, m);
-  Fe hh = EC_MUL(h, h, m);
+  Fe hh = EC_SQR(h, m);
   Fe hhh = EC_MUL(h, hh, m);
   Fe v = EC_MUL(u1, hh, m);
   Pt o;
-  o.x = fe_sub(fe_sub(EC_MUL(r, r, m), hhh, m), fe_dbl(v, m), m);
+  o.x = fe_sub(fe_sub(EC_SQR(r, m), hhh, m), fe_dbl(v, m), m);
   o.y = fe_sub(EC_MUL(r, fe_sub(v, o.x, m), m), EC_MUL(s1, hhh, m), m);
   o.z = EC_MUL(EC_MUL(p.z, q.z, m), h, m);
   return o;

@@ -203,8 +203,9 @@ __device__ __forceinline__ Fe fe_sqr(const Fe& a, const Modulus& m) {
 // a 64-bit add a word product), the same words as fe_montmul and fe_sqr. The compiler computes their products
 // ahead of the adds that take them, where a PTX carry chain puts each
 // multiply on the chain. The combine's EC adds (csrc/combine.cu), chains
-// of dependent adds with few warps to hide them, ran faster on these; the
-// other kernels ran faster on the PTX ones (PERF.md).
+// of dependent adds with few warps to hide them, and NTT stage A
+// (csrc/ntt.cu) ran faster on these; the other kernels ran faster on the
+// PTX ones (PERF.md).
 //
 // CIOS Montgomery multiply: a * b * 2^-256 mod p. With a, b < p < 2^254 the
 // running sum stays below 2p, so nine words (t[8] for the top carry) suffice.

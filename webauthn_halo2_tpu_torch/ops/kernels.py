@@ -34,7 +34,7 @@ _U32 = ctypes.c_uint32
 _U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     "wh2_montmul": [_P, _LL, _I, _P, _LL, _I, _P, _LL, _U32P, _U32, _P],
-    "wh2_ntt_stage_a": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
+    "wh2_ntt_stage_a": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _U32P, _U32, _P],
     "wh2_ntt_stage_b": [_P, _P, _P, _LL, _LL, _LL, _I, _U32P, _U32, _P],
     "wh2_msm_interior": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                          _P, _U32P, _U32, _U32P, _P],

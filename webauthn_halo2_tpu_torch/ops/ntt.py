@@ -10,10 +10,12 @@ runs along the last axis.
 
 On a CUDA tensor `ntt`/`intt` go to the fused kernels for every k:
 the bit-reversal gather is a torch index op, stage A (csrc/ntt.cu) runs
-all stages with pair distance h < T inside shared memory, stage B runs each
+all stages with pair distance h < T inside shared memory (the tile of a
+block, or of a cluster of blocks), in passes of radix 4, stage B runs each
 remaining stage, and the inverse scales by n^-1 through the montmul
-kernel. On a CPU tensor they run `_ntt_core`, the stage loop, which is the
-plain version of the whole transform.
+kernel; `stage_a_schedule` picks the tiles. On a CPU tensor they run
+`_ntt_core`, the stage loop, which is the plain version of the whole
+transform.
 """
 from __future__ import annotations
 
@@ -28,7 +30,13 @@ from ..fields.limbs import FR_SPEC, W, FieldSpec
 from . import kernels as K
 from . import modops as M
 
-T_LOG_MAX = 12  # stage-A tile of 4096 elements: 128 KB of shared memory
+T_LOG_MAX = 12  # stage-A block tile of 4096 elements: 128 KB of shared memory
+STAGE_A_R = 2  # csrc/ntt.cu: passes of radix 4, four elements a thread
+CLUSTER_LOG_MAX = 2  # clusters of up to 4 blocks share a tile
+# The schedule: blocks of 2^10 elements in clusters of 2, one tile of 2^11
+# (scripts/sweep_torch_kernels.py on the proof's launch shapes, PERF.md).
+T_LOG_BLOCK = 10
+CLUSTER_LOG = 1
 
 LAUNCHES = {"ntt_stage_a": 0, "ntt_stage_b": 0}
 
@@ -135,6 +143,30 @@ def _ninv(spec: FieldSpec, k: int, device) -> torch.Tensor:
 
 # --- stage A: every block-local stage (h < T) ---------------------------
 
+def stage_a_schedule(B: int, k: int) -> tuple[int, int]:
+    """(log_t, cq) of stage A for a transform of B columns of 2^k: stage A
+    runs stages 0 .. log_t - 1, in blocks of 2^(log_t - cq - 2) threads
+    over tiles of 2^(log_t - cq) elements, clusters of 2^cq blocks sharing
+    the stages above the block's tile; (0, 0) (no stage A) below k = 3.
+    One schedule fits every shape of the proof: a single column of 2^17
+    still has 128 blocks for the 132 SMs, and against the best schedule of
+    each launch shape it lost at most 1.5% of stage A + B on an H100."""
+    if k < 3:
+        return 0, 0
+    log_b = min(k, T_LOG_BLOCK)
+    cq = min(CLUSTER_LOG, k - log_b)
+    return log_b + cq, cq
+
+
+def stage_a_passes(log_t: int) -> list[tuple[int, int, int]]:
+    """The passes of a stage-A block over its tile of 2^log_t elements,
+    (c, s, e) each: thread g holds the four elements
+    ((g >> c) << (c + 2)) | (k << c) | (g mod 2^c) and runs stages
+    s .. e - 1 (a subset of c, c + 1) on them."""
+    R = STAGE_A_R
+    return [(min(s, log_t - R), s, min(s + R, log_t)) for s in range(0, log_t, R)]
+
+
 def stage_a_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
                   log_t: int) -> torch.Tensor:
     """Plain version of the stage-A kernel: x (8, B, n) bit-reversed,
@@ -148,18 +180,24 @@ def stage_a_plain(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
 
 
 def stage_a(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
-            log_t: int) -> torch.Tensor:
-    """Stage A of csrc/ntt.cu on a CUDA tensor, its plain version on CPU."""
+            log_t: int, cq: int = 0) -> torch.Tensor:
+    """Stage A of csrc/ntt.cu on a CUDA tensor, its plain version on CPU:
+    stages 0 .. log_t - 1, with block tiles of 2^(log_t - cq) in clusters
+    of 2^cq blocks (which changes the kernel's schedule, not its result)."""
     if x.device.type == "cpu":
         return stage_a_plain(spec, x, tw, log_t)
     _check_stage_args(x, tw)
     _, B, n = x.shape
-    if n % (1 << log_t) or not 1 <= log_t <= T_LOG_MAX:
-        raise ValueError(f"stage A: bad tile 2^{log_t} for n={n}")
+    log_b = log_t - cq
+    if (n % (1 << log_t) or not 3 <= log_b <= T_LOG_MAX
+            or not 0 <= cq <= CLUSTER_LOG_MAX):
+        raise ValueError(f"stage A: bad tile 2^{log_b} or cluster 2^{cq} for n={n}")
+    if x.data_ptr() % 16:
+        raise ValueError("stage A reads 16-byte words: x must be 16-byte aligned")
     out = torch.empty_like(x)
     rc = K.lib("ntt").wh2_ntt_stage_a(
         x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.shape[1], B, n,
-        log_t, K.modulus_words(spec), spec.n0, K.stream_ptr(x.device))
+        log_b, cq, K.modulus_words(spec), spec.n0, K.stream_ptr(x.device))
     K.check(rc, "ntt stage A kernel")
     LAUNCHES["ntt_stage_a"] += 1
     return out
@@ -205,17 +243,20 @@ def _check_stage_args(x: torch.Tensor, tw: torch.Tensor) -> None:
 def ntt_fused(spec: FieldSpec, a: torch.Tensor, k: int, inverse: bool = False,
               t_lanes: int = 0) -> torch.Tensor:
     """Bit-reversal gather, stage A, stage B per remaining stage, and the
-    n^-1 scale for the inverse: (8, n) or (8, B, n)."""
+    n^-1 scale for the inverse: (8, n) or (8, B, n). Stage A's tile comes
+    from `stage_a_schedule`, or is t_lanes elements where that is given."""
     if spec.p != BN254_FR:
         raise ValueError("NTT domain only defined over bn254 Fr")
     x, squeeze = _as_stack(a)
     n = 1 << k
     assert x.shape[2] == n
-    log_t = min(k, (t_lanes.bit_length() - 1) if t_lanes else T_LOG_MAX)
+    log_t, cq = stage_a_schedule(x.shape[1], k)
+    if t_lanes:
+        log_t, cq = min(k, t_lanes.bit_length() - 1), 0
     x = x[:, :, _perm_dev(k, x.device)].contiguous()
     tw = _twiddles_dev(k, inverse, x.device)
     if log_t:
-        x = stage_a(spec, x, tw, log_t)
+        x = stage_a(spec, x, tw, log_t, cq)
     for s in range(log_t, k):
         x = stage_b(spec, x, tw, s)
     if inverse:
