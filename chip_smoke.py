@@ -12,8 +12,9 @@ Phases, one or more lines each:
      (random words at 2^17 and 2^19, edge words in Fr and Fq, a broadcast
      (8, 1) operand on either side, slices of a stacked (8, 3, n) tensor,
      ragged sizes; then its warm and cold times at (8, 2^19) from CUDA
-     graph replays, with the SM clock and power draw; every other time is
-     from CUDA events over launches from Python: `timed_by`), NTT stage A
+     graph replays, with the SM clock and power draw; every other time but
+     the int8 montmul's is from CUDA events over launches from Python:
+     `timed_by`), NTT stage A
      at each launch shape of the proof's transforms ((1, 2^17), (1, 2^19),
      (19, 2^17), (19, 2^19)) with the tiles its schedule gives it, stage
      B, the v3 MSM kernels (interior, scan, combine) at n = 2^17,
@@ -27,9 +28,10 @@ Phases, one or more lines each:
      serial engine; the fused EC add at the serial route's grow shape
      (R, K) and its scan's (R, 2K) with infinities on either side; the
      int8 tensor-core montmul (one mma tile against a host product first)
-     at (8, 2^19) against its plain version
-     and the montmul kernel, edge words included, driven once through its
-     entry point with the counts from zero;
+     against its plain version and the montmul kernel in Fr and Fq, edge
+     words first, each at (8, 2^19), (8, 2^12), a ragged (8, 2^12 + 7) and
+     (8, 16), driven through its entry point with the counts from zero,
+     then timed from CUDA graph replays with the SM clock and power draw;
   3. a full k=17 MSM batch through the v3 pipeline equals the serial
      Pippenger on the card and the host oracle (sum k_i tau^i) G, and the
      v1 driver gives the same points;
@@ -85,6 +87,9 @@ HBM_BYTES_PER_S = 3.35e12
 IMAD_PER_S = 16.75e12
 # dense int8 tensor-core operations per second (a multiply-add is two)
 INT8_OPS_PER_S = 1979e12
+# thread instructions issued per second: 132 SMs, four schedulers of 32
+# lanes each, at the 1,980 MHz maximum SM clock
+ISSUE_PER_S = 132 * 128 * 1.98e9
 # one 8-word CIOS Montgomery multiply: 64 a*b and 64 m*p word products,
 # each a 32x32 -> 64-bit product (two IMADs: low and high half)
 IMAD_PER_MONTMUL = 256
@@ -387,10 +392,21 @@ def _least_work(sdig, bnd, seg, buckets, n: int, lanes: int) -> dict:
     }
 
 
+def _bound_terms(row: dict) -> dict:
+    """ms of each term of a row's bound: its bytes over the memory rate, its
+    operations over their rate, and, where the row counts them, its 32-bit
+    operations around the tensor-core products over the SMs' issue rate."""
+    terms = dict(bytes=row["bytes"] / HBM_BYTES_PER_S * 1e3,
+                 operations=row["ops"] / row.get("rate", IMAD_PER_S) * 1e3)
+    if "glue_ops" in row:
+        terms["glue"] = row["glue_ops"] / ISSUE_PER_S * 1e3
+    return terms
+
+
 def _bound_ms(row: dict) -> tuple:
-    t_bytes = row["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = row["ops"] / row.get("rate", IMAD_PER_S) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    terms = _bound_terms(row)
+    by = max(terms, key=terms.get)
+    return terms[by], "bytes" if by == "bytes" else "operations"
 
 
 def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False,
@@ -816,32 +832,39 @@ def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
 
 
 def phase_mxu(dev, gen, logn: int = 19):
-    """Phase 2, row 9: one m16n8k32 int8 tile against a host product, then
-    the int8 tensor-core montmul at (8, 2^logn), edge words included, driven
-    once through its entry point with the count from zero and held against
-    its plain version and the montmul kernel. Returns (row, launches)."""
+    """Phase 2, row 9: one m16n8k32 u8 tile against a host product, then
+    the int8 tensor-core montmul, driven through its entry point with the
+    count from zero and held against its plain version and the montmul
+    kernel, in Fr and Fq, the edge words' pairs first: at (8, 2^logn) (more
+    passes of the persistent tile loop than one), (8, 2^12), a ragged
+    (8, 2^12 + 7) (a partial last tile) and (8, 16) (fewer tiles than
+    warps). Then its time at (8, 2^logn) Fr
+    from CUDA graph replays, with the SM clock and power draw, beside the
+    montmul kernel's. Returns (row, launches)."""
     from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC, FR_SPEC
     from webauthn_halo2_tpu_torch.ops import modops as M
     from webauthn_halo2_tpu_torch.ops import mxu_mod as X
 
-    A = torch.randint(-128, 128, (16, 32), generator=gen, device=dev).to(torch.int8)
-    B = torch.randint(-128, 128, (8, 32), generator=gen, device=dev).to(torch.int8)
+    A = torch.randint(0, 256, (16, 32), generator=gen, device=dev).to(torch.uint8)
+    B = torch.randint(0, 256, (8, 32), generator=gen, device=dev).to(torch.uint8)
     C = X.mma_tile(A, B)
     tile_err = _max_abs_err(C.cpu(), A.cpu().long() @ B.cpu().long().T)
-    log(f"[kernels] mma.sync m16n8k32 s8 tile against a host product: max_abs_err={tile_err}")
+    log(f"[kernels] mma.sync m16n8k32 u8 tile against a host product: max_abs_err={tile_err}")
     if tile_err:
         fail("the int8 mma tile disagrees with a host product")
 
     n = 1 << logn
-    errs = []
-    for spec, m in ((FQ_SPEC, 1 << 12), (FR_SPEC, n)):
+    errs, launches = [], 0
+    for spec, m in ((FQ_SPEC, 1 << 12), (FQ_SPEC, n), (FR_SPEC, n), (FR_SPEC, (1 << 12) + 7),
+                    (FQ_SPEC, (1 << 12) + 7), (FR_SPEC, 16), (FQ_SPEC, 16)):
         a = _rand_words(spec, (m,), gen, dev)
         b = _rand_words(spec, (m,), gen, dev)
         p = spec.p
         edge = [0, 1, 2, p - 2, p - 1]
-        pairs = [(x, y) for x in edge for y in edge]
+        pairs = [(x, y) for x in edge for y in edge][:m]
         a[:, :len(pairs)] = torch.as_tensor(spec.encode([x for x, _ in pairs], mont=False)).to(dev)
         b[:, :len(pairs)] = torch.as_tensor(spec.encode([y for _, y in pairs], mont=False)).to(dev)
+        what = f"{spec.name} (8, {m}), {len(pairs)} edge pairs"
         X.LAUNCHES["mxu_montmul"] = 0
         got = X.mxu_montmul_rows(spec, a, b)
         launches = X.LAUNCHES["mxu_montmul"]
@@ -849,18 +872,28 @@ def phase_mxu(dev, gen, logn: int = 19):
                   _max_abs_err(got, M.montmul_cuda(spec, a, b)))
         torch.cuda.synchronize()
         errs.append(err)
-        log(f"[kernels] mxu_montmul {spec.name} (8, {m}), {len(pairs)} edge pairs: "
-            f"max_abs_err={err} against its plain version and the montmul kernel")
+        log(f"[kernels] mxu_montmul {what}: max_abs_err={err} against its plain version "
+            f"and the montmul kernel")
         if err:
-            fail(f"the int8 montmul disagrees ({spec.name})")
-    ms = _events_ms(lambda: X.mxu_montmul_rows_cuda(FR_SPEC, a, b), 20)
-    mm_ms = _events_ms(lambda: M.montmul_cuda(FR_SPEC, a, b), 20)
-    log(f"[kernels] mxu_montmul (8, 2^{logn}): {ms:.4f} ms against the montmul kernel's "
-        f"{mm_ms:.4f} ms; {X.INT8_MACS} int8 multiply-adds a multiply")
-    return dict(err=max(errs), shape=f"(8, 2^{logn}), Fr, {X.INT8_MACS} int8 MACs a multiply",
-                ms=ms, plain_ms=_events_ms(lambda: X.mxu_montmul_rows_plain(FR_SPEC, a, b), 2),
-                bytes=3 * ELEM_BYTES * n, ops=2 * X.INT8_MACS * n,
-                rate=INT8_OPS_PER_S), launches
+            fail(f"the int8 montmul disagrees ({what})")
+        if m == n and spec is FR_SPEC:
+            timed = (a, b)
+    a, b = timed
+    ms, mhz, watts = _clocks_during(lambda: X.mxu_montmul_rows_cuda(FR_SPEC, a, b))
+    mm_ms = _graph_ms(lambda: M.montmul_cuda(FR_SPEC, a, b))
+    row = dict(err=max(errs), shape=f"(8, 2^{logn}), Fr, {X.INT8_MACS} int8 MACs and "
+               f"{X.GLUE_OPS_TOTAL} 32-bit operations a multiply (the kernel adds "
+               f"{X.DESIGN_OPS_TOTAL})", ms=ms, timed_by="cuda_graph",
+               clocks=dict(sm_mhz=mhz, power_w=watts),
+               plain_ms=_events_ms(lambda: X.mxu_montmul_rows_plain(FR_SPEC, a, b), 2),
+               bytes=3 * ELEM_BYTES * n, ops=2 * X.INT8_MACS * n, rate=INT8_OPS_PER_S,
+               glue_ops=X.GLUE_OPS_TOTAL * n)
+    terms = _bound_terms(row)
+    row["bound_terms_ms"] = terms
+    log(f"[kernels] mxu_montmul (8, 2^{logn}): {ms:.4f} ms (SM {mhz} MHz, {watts} W) against "
+        f"the montmul kernel's {mm_ms:.4f} ms, both from CUDA graph replays; bound "
+        f"{json.dumps(terms)} ms")
+    return row, launches
 
 
 def phase_msm_batch(dev, gen, srs, batch: int):
@@ -1217,7 +1250,7 @@ def main() -> int:
                                  if counter in c},
             "launches_per_proof": per_proof.get(counter) if path == "v3" else None,
             **{k: row[k] for k in ("batches", "ms_cold", "clocks", "proof_launch_shapes",
-                                   "routes") if k in row},
+                                   "routes", "bound_terms_ms") if k in row},
         })
     log(f"[total] {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Measurements behind the design of the port's redesigned kernels (the
-montmul, the combine, NTT stage A and the fused EC add), on one CUDA card,
-that chip_smoke.py does not make.
+montmul, the combine, NTT stage A, the fused EC add and the int8 montmul),
+on one CUDA card, that chip_smoke.py does not make.
 
-    python3 scripts/sweep_torch_kernels.py [--parent DIR] [--parts sass,ntt,ec,montmul,combine]
+    python3 scripts/sweep_torch_kernels.py [--parent DIR]
+                                           [--parts sass,ntt,ec,montmul,combine,mxu]
                                            [--grid 1024:128,1024:256] [--rounds 5]
                                            [--out build/sweep_kernels.json]
 
-1. sass: SASS of the montmul, stage-A and EC-add kernels, `cuobjdump -sass`
-   of the built libraries, for each instantiation its instructions by
-   opcode. With --parent (the root of an earlier tree of the repository,
-   e.g. a `git archive` unpacked into build/parent; its kernels are built
-   there with its own build module when missing), the same for its
-   libraries.
+1. sass: SASS of the montmul, stage-A, EC-add and int8-montmul kernels,
+   `cuobjdump -sass` of the built libraries, for each instantiation its
+   instructions by opcode and its loops (backward branches); for the int8
+   montmul, from its loops' trip counts (MXU_LOOP_TRIPS), the warp
+   instructions it issues an element. With --parent (the root of an
+   earlier tree of the repository, e.g. a `git archive` unpacked into
+   build/parent; its kernels are built there with its own build module
+   when missing), the same for its libraries.
 2. ntt: stage A at each launch shape of a k=17 proof (PROOF_NTT_LAUNCHES),
    for every schedule the kernel takes (block tiles of 2^9 to 2^12, in
    clusters of 1 to 4 blocks) and, with --parent, the parent's stage A at
@@ -36,6 +39,14 @@ that chip_smoke.py does not make.
    combine, and each apart, for every (G, P) of --grid (G chunks a row, P
    row threads), --rounds times in turns. Every configuration's window
    sums equal the built default's as affine points.
+6. mxu (needs --parent): the int8 tensor-core montmul, the parent tree's
+   kernel (with the matrices and scalars its own ops/mxu_mod.py builds, in
+   a process of its own; the earlier C entry, which takes the three
+   matrices and four scalars) against this one, at (8, 2^19) in Fr and
+   (8, 2^12) in Fq, each first checked equal to this
+   tree's plain version and the montmul kernel, then --rounds rounds in
+   turns from CUDA graph replays, with the SM clock and power draw read
+   beside a last replay of each.
 Prints one JSON line per part and writes them all to --out. Needs one card.
 """
 from __future__ import annotations
@@ -68,27 +79,65 @@ def _cuobjdump() -> str:
 def sass_counts(lib: Path, kernel: str) -> dict:
     """Per instantiation of the kernels of `lib` whose name holds `kernel`:
     instructions in all, by opcode, with the integer multiply-adds (IMAD,
-    not IMAD.MOV) apart."""
+    not IMAD.MOV) apart, and its loops: each backward branch as [first
+    instruction, branch] (indices into the kernel's instructions) with its
+    body's instruction count, in address order."""
     text = subprocess.run([_cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
-    out, name, ops = {}, None, None
+    out, name, fn = {}, None, None
     for line in text.splitlines():
         if m := re.search(r"Function : (\S+)", line):
-            name, ops = m.group(1), collections.Counter()
+            name, fn = m.group(1), dict(ops=collections.Counter(), addrs=[], branches=[])
             if kernel in name:
-                out[name] = ops
-        elif name and (m := re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)):
-            ops[m.group(1)] += 1
-    return {name: dict(instructions=sum(ops.values()),
-                       imad=sum(v for k, v in ops.items() if k.startswith("IMAD")
-                                and not k.startswith("IMAD.MOV")),
-                       by_opcode=dict(ops.most_common()))
-            for name, ops in out.items()}
+                out[name] = fn
+        elif name and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)",
+                                      line)):
+            addr = int(m.group(1), 16)
+            fn["ops"][m.group(2)] += 1
+            fn["addrs"].append(addr)
+            if m.group(2).startswith("BRA") and (b := re.search(r"0x([0-9a-f]+)", m.group(3))):
+                fn["branches"].append((addr, int(b.group(1), 16)))
+    rows = {}
+    for name, fn in out.items():
+        ops, index = fn["ops"], {a: i for i, a in enumerate(fn["addrs"])}
+        rows[name] = dict(instructions=sum(ops.values()),
+                          imad=sum(v for k, v in ops.items() if k.startswith("IMAD")
+                                   and not k.startswith("IMAD.MOV")),
+                          by_opcode=dict(ops.most_common()),
+                          loops=[dict(first=index[to], branch=index[at],
+                                      body=index[at] - index[to] + 1)
+                                 for at, to in fn["branches"] if to < at and to in index])
+    return rows
 
 
 # (source, kernel name) of each kernel whose SASS part 1 counts
 SASS_KERNELS = (("montmul", "montmul_kernel"), ("ntt", "ntt_stage_a_kernel"),
-                ("ec", "ec_add_unsafe_kernel"))
+                ("ec", "ec_add_unsafe_kernel"), ("mxu", "mxu_montmul_kernel"))
+
+
+# Trip counts of the int8 montmul's inner loops (in address order) and the
+# elements one pass of its tile loop takes: this tree's INTERP loop (8
+# k-steps, unrolled by two) over 32 elements; the parent's (the kernel
+# before its register chain) EVAL loop (16 n-tiles) for each prime, INTERP
+# (16) and FOLD (8) over 16 elements
+MXU_LOOP_TRIPS = {"this": ([4], 32), "parent": ([16, 16, 16, 8], 16)}
+
+
+def mxu_issue_per_element(loops: list, trips: list, elements: int) -> dict | None:
+    """Warp instructions one pass of the tile loop (the loop with the most
+    loops inside it) issues, with every inner loop run its trip count, over
+    the elements of a pass; None when the loops are not as expected."""
+    outer = max(loops, key=lambda lp: sum(lp["first"] <= o["first"] and o["branch"] < lp["branch"]
+                                          for o in loops if o is not lp))
+    inner = [lp for lp in loops if lp is not outer
+             and outer["first"] <= lp["first"] and lp["branch"] < outer["branch"]]
+    if len(inner) != len(trips):
+        return None
+    issued = outer["body"] + sum((n - 1) * lp["body"] for lp, n in zip(inner, trips))
+    return dict(tile_loop=outer["body"], inner=[lp["body"] for lp in inner], trips=trips,
+                warp_instructions_a_pass=issued, elements_a_pass=elements,
+                warp_instructions_an_element=issued / elements,
+                thread_slots_an_element=32 * issued / elements)
 
 
 def parent_library(parent: Path, name: str) -> Path:
@@ -285,6 +334,75 @@ def montmul_turns(parent: Path, dev) -> dict:
         dict(bytes=3 * CS.ELEM_BYTES * n, ops=CS.IMAD_PER_MONTMUL * n))[0], turns=rows)
 
 
+def parent_mxu_constants(parent: Path, spec_name: str) -> dict:
+    """The parent tree's int8-montmul matrices, as its kernel takes them
+    ((width, depth)), and its scalars, made by its own ops/mxu_mod.py in a
+    process of its own and kept in the parent's build directory."""
+    import numpy as np
+
+    path = parent.resolve() / "build" / f"mxu_constants_{spec_name}.npz"
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        code = (
+            "import numpy as np\n"
+            "from webauthn_halo2_tpu_torch.fields import limbs\n"
+            "from webauthn_halo2_tpu_torch.ops import mxu_mod as X\n"
+            f"cs = X.consts(limbs.{spec_name.upper()}_SPEC)\n"
+            "t = lambda m: np.ascontiguousarray(np.swapaxes(m, -1, -2))\n"
+            f"np.savez({str(path)!r}, ev=t(cs.ev), iv=t(cs.iv), fold=t(cs.fold),\n"
+            "         scalars=np.array([cs.qinv[0], cs.qinv[1], cs.inv12, cs.pt1], np.uint64))\n")
+        subprocess.run([sys.executable, "-c", code], cwd=parent, check=True)
+    return dict(np.load(path))
+
+
+def mxu_turns(parent: Path, dev, rounds: int) -> dict:
+    """The parent tree's int8 montmul and this tree's at (8, 2^19) Fr and
+    (8, 2^12) Fq, in turns from CUDA graph replays."""
+    import chip_smoke as CS
+    from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC, FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import mxu_mod as X
+
+    old = _load(parent_library(parent, "mxu"), "wh2_mxu_montmul",
+                [K._P, K._P, K._P, K._LL, K._P, K._P, K._P, K._U32P, K._U32, K._U32, K._U32,
+                 K._U64, K._P])
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = []
+    for spec, logn in ((FR_SPEC, 19), (FQ_SPEC, 12)):
+        n = 1 << logn
+        c = parent_mxu_constants(parent, spec.name.split("_")[1])
+        mats = {k: torch.as_tensor(c[k]).to(dev) for k in ("ev", "iv", "fold")}
+        qinv1, qinv2, inv12, pt1 = (int(v) for v in c["scalars"])
+        a = CS._rand_words(spec, (n,), gen, dev)
+        b = CS._rand_words(spec, (n,), gen, dev)
+
+        def parent_call(spec=spec, a=a, b=b, n=n, mats=mats, s=(qinv1, qinv2, inv12, pt1)):
+            o = torch.empty_like(a)
+            K.check(old.wh2_mxu_montmul(a.data_ptr(), b.data_ptr(), o.data_ptr(), n,
+                                        mats["ev"].data_ptr(), mats["iv"].data_ptr(),
+                                        mats["fold"].data_ptr(), K.modulus_words(spec), *s,
+                                        K.stream_ptr(dev)), "parent int8 montmul")
+            return o
+
+        calls = {"parent": parent_call,
+                 "this": lambda spec=spec, a=a, b=b: X.mxu_montmul_rows_cuda(spec, a, b)}
+        want = M.montmul_cuda(spec, a, b)
+        if not torch.equal(X.mxu_montmul_rows_plain(spec, a, b), want):
+            raise SystemExit(f"the int8 montmul's plain version disagrees ({spec.name})")
+        for name, fn in calls.items():
+            if not torch.equal(fn(), want):
+                raise SystemExit(f"the {name} int8 montmul disagrees ({spec.name}, 2^{logn})")
+        times = _turns(calls, rounds, 100, 20)
+        clocks = {name: CS._clocks_during(fn)[1:] for name, fn in calls.items()}
+        row = dict(field=spec.name, shape=f"(8, 2^{logn})", times=times,
+                   clocks={k: dict(sm_mhz=v[0], power_w=v[1]) for k, v in clocks.items()})
+        out.append(row)
+        print(json.dumps({"mxu": {"field": spec.name, "shape": row["shape"],
+                                  **{k: v["ms"] for k, v in times.items()}}}), flush=True)
+    return dict(shapes=out)
+
+
 def proof_batches(dev) -> list:
     """Keygen and one v3 proof of the default circuit on chip_smoke's
     signature; returns the proof's commit batches (bases, scalars)."""
@@ -367,7 +485,7 @@ def combine_grid(dev, grid: list, rounds: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--parts", default="sass,ntt,ec,montmul,combine")
+    ap.add_argument("--parts", default="sass,ntt,ec,montmul,combine,mxu")
     ap.add_argument("--grid", default="512:256,1024:128,1024:256,2048:128,2048:256")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default="build/sweep_kernels.json")
@@ -390,9 +508,15 @@ def main() -> int:
         if args.parent:
             report["sass"]["parent"] = {src: sass_counts(parent_library(args.parent, src), kern)
                                         for src, kern in SASS_KERNELS}
+        report["sass_mxu"] = {}
+        for tree, per in report["sass"].items():
+            loops = next(iter(per["mxu"].values()))["loops"]
+            report["sass_mxu"][tree] = dict(loops=loops, issue=mxu_issue_per_element(
+                loops, *MXU_LOOP_TRIPS[tree]))
         print(json.dumps({"sass": {tree: {src: {k: v["instructions"] for k, v in kern.items()}
                                           for src, kern in per.items()}
                                    for tree, per in report["sass"].items()}}), flush=True)
+        print(json.dumps({"sass_mxu": report["sass_mxu"]}), flush=True)
     if "ntt" in parts:
         report["ntt"] = ntt_turns(args.parent, dev, args.rounds)
     if "ec" in parts:
@@ -405,6 +529,8 @@ def main() -> int:
         report["combine"] = combine_grid(dev, grid, args.rounds)
         print(json.dumps({"combine_proof_median_ms": report["combine"]["proof_median_ms"],
                           "proof_bound_ms": report["combine"]["proof_bound_ms"]}), flush=True)
+    if "mxu" in parts and args.parent:
+        report["mxu"] = mxu_turns(args.parent, dev, args.rounds)
     report["seconds"] = time.time() - t0
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(report, indent=1))

@@ -46,8 +46,7 @@ _SIGNATURES = {
                              _U32P, _P],
     "wh2_ec_add_unsafe": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _U32P,
                           _U32, _P],
-    "wh2_mxu_montmul": [_P, _P, _P, _LL, _P, _P, _P, _U32P, _U32, _U32,
-                        _U32, _U64, _P],
+    "wh2_mxu_montmul": [_P, _P, _P, _LL, _P, _U32P, _U32P, _P],
     "wh2_mma_tile": [_P, _P, _P, _P],
 }
 
