@@ -57,10 +57,25 @@ Phases, one or more lines each:
      byte-identical, and the scan kernels are not launched; the fused EC
      add's launch shapes on both routes are recorded and replayed, summed
      over each route's proof (`routes` of its row);
-  9. every kernel of a path launched during that path's run (each run with
+  9. the on-chain half at k=17 through api on the v3 route: download_keys
+     into a new directory under build/, the in-memory keys dropped, the pk
+     loaded from its file (size, save and load times) and a proof from it
+     equal to phase 5's; generate_proof_evm (GWC over Keccak) with the
+     launch counters from zero, its spans, launches and commit batches,
+     each montmul and NTT launch shape and each commit batch the phase-5
+     proof did not have against the plain versions; verify_evm accepts it,
+     rejects a tampered copy and accepts results/proof_gwc_k17.hex; a
+     SHPLONK proof over Keccak that verify_evm accepts; generate_verifier
+     for both schemes, each Yul text equal to results/P256Verifier.yul and
+     results/P256Verifier_shplonk.yul, deployed in the port's EVM, where the
+     JAX package's proofs run at exactly the gas of results/evm_gas.json,
+     the port's own within 0.5% of it, and tampered and truncated proofs
+     revert, each call timed;
+ 10. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
-     the serial bucket sum did not run on the v3 route; a `kernels` JSON
+     the serial bucket sum did not run on the v3 route, and rows 1-6 ran on
+     the GWC route; a `kernels` JSON
      line with launches, times, bounds, the plain versions' times, for the
      MSM kernels their times and bounds over the proof's batches (the
      combine's also per batch), and for rows 1-3 the proof's launch shapes.
@@ -72,6 +87,7 @@ import json
 import os
 import random
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -717,6 +733,29 @@ def _launch_recorder(module, name: str, key, seen: list):
     return lambda: setattr(module, name, orig)
 
 
+def _record_launch_shapes(shapes: dict):
+    """Record the shape of every montmul, NTT stage A and stage B launch into
+    shapes["montmul"], ["ntt_stage_a"], ["ntt_stage_b"]; returns a function
+    that stops it."""
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    restore = [
+        _launch_recorder(M, "montmul_cuda", lambda spec, a, b, *_, **__: (
+            max(a[0].numel(), b[0].numel(), torch.broadcast_shapes(a.shape, b.shape)[1:].numel()),
+            a.numel() == 8, b.numel() == 8), shapes["montmul"]),
+        _launch_recorder(N, "stage_a", lambda spec, x, tw, log_t, cq=0: (
+            x.shape[1], x.shape[2], log_t, cq), shapes["ntt_stage_a"]),
+        _launch_recorder(N, "stage_b", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
+                         shapes["ntt_stage_b"])]
+
+    def stop():
+        for undo in restore:
+            undo()
+
+    return stop
+
+
 def phase_launch_shapes(dev, gen, shapes: dict, srs=None) -> dict:
     """Rows 1-3 and 8 on a proof's own launches: for each launch shape the
     proof gave the montmul and NTT kernels (the main path's) or the fused
@@ -983,6 +1022,211 @@ def _record_window_sums(batches: list):
     return undo
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _flip(data: bytes) -> bytes:
+    bad = bytearray(data)
+    bad[len(bad) // 2] ^= 1
+    return bytes(bad)
+
+
+def _first_difference(a: str, b: str) -> str:
+    for i, (x, y) in enumerate(zip(a.splitlines(), b.splitlines())):
+        if x != y:
+            return f"first differing line {i + 1}: {x[:160]!r} against {y[:160]!r}"
+    return f"one text is a prefix of the other ({len(a)} and {len(b)} characters)"
+
+
+def phase_keys_on_disk(api, params, signed, proof, dev):
+    """Phase 9.1: download_keys into a new directory under build/ (keygen,
+    then the key file), the in-memory keys dropped, the pk loaded from
+    that file, and a proof from it equal to the main path's. Returns the
+    directory and the pk and vk manifests' paths."""
+    import glob
+    import tempfile
+
+    from webauthn_halo2_tpu_torch.plonk import pk_cache as PC
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    key_dir = tempfile.mkdtemp(prefix="chip_smoke_keys_", dir=os.path.join(ROOT, "build"))
+    pk_path = os.path.join(key_dir, "ecdsa_pk.json")
+    vk_path = os.path.join(key_dir, "ecdsa_vk.json")
+    # the file's own save and load, apart from the circuit's synthesis and
+    # digest that precede them
+    seconds = {"save_pk": [], "load_pk": []}
+    originals = {name: getattr(PC, name) for name in seconds}
+
+    def timed(name):
+        def run(*args, **kw):
+            t = time.time()
+            out = originals[name](*args, **kw)
+            torch.cuda.synchronize()
+            seconds[name].append(time.time() - t)
+            return out
+
+        return run
+
+    for name in seconds:
+        setattr(PC, name, timed(name))
+    try:
+        t0 = time.time()
+        api.download_keys(params.degree, pk_path, vk_path, params=params, device=dev)
+        torch.cuda.synchronize()
+        download_s = time.time() - t0
+        api._PK_CACHE.clear()
+        t0 = time.time()
+        pk = api.proving_key(params, device=dev, cache_dir=key_dir)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+    finally:
+        for name, orig in originals.items():
+            setattr(PC, name, orig)
+    files = glob.glob(os.path.join(key_dir, "*.torch.npz"))
+    if len(files) != 1 or [len(v) for v in seconds.values()] != [1, 1] or pk.spans:
+        fail(f"download_keys and proving_key wrote {files} and saved and loaded "
+             f"{json.dumps(seconds)}, not one key file saved once and loaded once")
+    size = os.path.getsize(files[0])
+    t0 = time.time()
+    again = api.generate_proof(*signed, proving_key_path=pk_path, device=dev,
+                               rng=_det_rng(b"chip_smoke"))
+    prove_s = time.time() - t0
+    log(f"[keys] download_keys {download_s:.1f}s (circuit, keygen and save), key file "
+        f"{os.path.basename(files[0])} {size} bytes saved in {seconds['save_pk'][0]:.2f}s; "
+        f"proving_key from the file {load_s:.2f}s (circuit, digest and load; the load "
+        f"{seconds['load_pk'][0]:.2f}s); proof from the loaded pk in {prove_s:.1f}s: "
+        f"identical bytes: {again == proof}")
+    if again != proof:
+        fail("the proof from the pk loaded from disk differs from the main path's")
+    return key_dir, pk_path, vk_path
+
+
+def phase_new_launch_shapes(dev, gen, seen: dict, new: dict) -> int:
+    """Each montmul and NTT launch shape in `new` that `seen` lacks, against
+    its plain version on random words at that shape, exact. Returns how
+    many were checked."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    checked = 0
+    for name, keys in new.items():
+        for key in sorted(set(keys) - set(seen[name])):
+            if name == "montmul":
+                n, a_bc, b_bc = key
+                a = _rand_words(FR_SPEC, (1 if a_bc else n,), gen, dev)
+                b = _rand_words(FR_SPEC, (1 if b_bc else n,), gen, dev)
+                got, want = M.montmul_cuda(FR_SPEC, a, b), M.montmul_plain(FR_SPEC, a, b)
+            else:
+                B, n, s = key[:3]
+                x = _rand_words(FR_SPEC, (B, n), gen, dev)
+                tw = N._twiddles_dev(n.bit_length() - 1, False, dev)
+                if name == "ntt_stage_a":
+                    got, want = N.stage_a(FR_SPEC, x, tw, s, key[3]), N.stage_a_plain(FR_SPEC, x, tw, s)
+                else:
+                    got, want = N.stage_b(FR_SPEC, x, tw, s), N.stage_b_plain(FR_SPEC, x, tw, s)
+            err = _max_abs_err(got, want)
+            log(f"[gwc] {name} at the new launch shape {key}: max_abs_err={err}")
+            if err:
+                fail(f"{name} disagrees with its plain version at the GWC proof's shape {key}")
+            checked += 1
+    return checked
+
+
+def _precompile_seconds(srs) -> dict:
+    """Seconds of one ecPairing of two pairs, one ecMul and one ecAdd as the
+    port's EVM runs them (pure Python)."""
+    from webauthn_halo2_tpu_torch.fields.pairing import pairing_check
+    from webauthn_halo2_tpu_torch.fields.ref_curve import BN254_G1_CURVE as G
+
+    t0 = time.time()
+    ok = pairing_check([(G.g, srs.s_g2), (G.neg(G.g), srs.s_g2)])
+    pairing_s = time.time() - t0
+    if not ok:
+        fail("the pure-Python pairing check rejected e(g, s) e(-g, s) = 1")
+    t0 = time.time()
+    p = G.mul((1 << 253) + 12345, G.g)
+    mul_s = time.time() - t0
+    t0 = time.time()
+    G.add(p, G.g)
+    return dict(ec_pairing_2_s=pairing_s, ec_mul_s=mul_s, ec_add_s=time.time() - t0)
+
+
+def phase_verifiers(api, key_dir: str, vk_path: str, dev, own: dict) -> dict:
+    """Phase 9.4: generate_verifier for GWC and SHPLONK into `key_dir`; each
+    Yul text equals the committed results/P256Verifier{,_shplonk}.yul, its
+    .code file is compile_yul of that text; deployed in the port's EVM, it
+    accepts results/proof_{gwc,shplonk}_k17.hex at exactly the gas of
+    results/evm_gas.json and the port's own proof within 0.5% of it, and
+    reverts on a flipped bit and on truncation. Returns per scheme the
+    calls' gas and seconds."""
+    from webauthn_halo2_tpu_torch.evm.machine import Chain
+    from webauthn_halo2_tpu_torch.evm.yul_asm import compile_yul
+
+    with open(os.path.join(ROOT, "results", "evm_gas.json")) as f:
+        gas_ref = json.load(f)
+    out = {}
+    for scheme, suffix, gas_key in (("gwc", "", "verify_gas"),
+                                    ("shplonk", "_shplonk", "verify_gas_shplonk")):
+        base = os.path.join(key_dir, f"P256Verifier{suffix}")
+        t0 = time.time()
+        own_gas = api.generate_verifier(vk_path, base + ".sol", base + ".code", base + ".yul",
+                                        valid_proof_hex=own[scheme].hex(), scheme=scheme,
+                                        device=dev)
+        gen_s = time.time() - t0
+        with open(base + ".yul") as f:
+            yul = f.read()
+        with open(os.path.join(ROOT, "results", f"P256Verifier{suffix}.yul")) as f:
+            committed = f.read()
+        if yul != committed:
+            log(f"[evm] {scheme}: the Yul differs from results/P256Verifier{suffix}.yul, "
+                + _first_difference(yul, committed))
+            fail(f"the port's {scheme} Yul differs from results/P256Verifier{suffix}.yul")
+        with open(base + ".code") as f:
+            code = bytes(json.load(f)["code"])
+        t0 = time.time()
+        deploy, runtime = compile_yul(committed)
+        asm_s = time.time() - t0
+        if code != deploy:
+            fail(f"the {scheme} .code file is not compile_yul of the committed Yul")
+        chain = Chain()
+        t0 = time.time()
+        addr, res = chain.create(0xD0, deploy)
+        deploy_s = time.time() - t0
+        if not res.success or chain.account(addr).code != runtime:
+            fail(f"the {scheme} verifier did not deploy")
+        with open(os.path.join(ROOT, "results", f"proof_{scheme}_k17.hex")) as f:
+            jax_proof = bytes.fromhex(f.read().strip())
+        calls = {}
+        for name, data in (("jax", jax_proof), ("own", own[scheme]),
+                           ("jax flipped", _flip(jax_proof)), ("jax truncated", jax_proof[:-32]),
+                           ("own flipped", _flip(own[scheme])),
+                           ("own truncated", own[scheme][:-32])):
+            t0 = time.time()
+            r = chain.call(0xD0, addr, data)
+            calls[name] = dict(ok=r.success, gas=r.gas_used, s=round(time.time() - t0, 3))
+        want = gas_ref[gas_key]
+        calls["own"]["equals_jax_bytes"] = own[scheme] == jax_proof
+        out[scheme] = dict(yul_bytes=len(yul), deploy_bytes=len(deploy), generate_s=gen_s,
+                           compile_s=asm_s, deploy_s=deploy_s, deploy_gas=res.gas_used,
+                           calls=calls)
+        log(f"[evm] {scheme}: Yul equal to results/P256Verifier{suffix}.yul ({len(yul)} "
+            f"characters), deploy code {len(deploy)} bytes; generate_verifier {gen_s:.1f}s "
+            f"(own proof {own_gas} gas), compile_yul {asm_s:.2f}s, deployed in {deploy_s:.2f}s; "
+            f"calls {json.dumps(calls)}; results/evm_gas.json {gas_key}={want}")
+        if not (calls["jax"]["ok"] and calls["jax"]["gas"] == want):
+            fail(f"the {scheme} verifier ran results/proof_{scheme}_k17.hex at "
+                 f"{calls['jax']['gas']} gas (ok={calls['jax']['ok']}), not {want}")
+        if not calls["own"]["ok"] or calls["own"]["gas"] != own_gas:
+            fail(f"the {scheme} verifier rejected the port's own proof")
+        if abs(calls["own"]["gas"] - want) > 0.005 * want:
+            fail(f"the port's {scheme} proof ran at {calls['own']['gas']} gas, "
+                 f"more than 0.5% from {want}")
+        if any(c["ok"] for name, c in calls.items() if name not in ("jax", "own")):
+            fail(f"the {scheme} verifier accepted a tampered or truncated proof")
+    return out
+
+
 # The largest commit batch of keygen and the proof (9 fixed and 9 sigma
 # columns in keygen, 8 advice columns in the proof): phase 2 checks the MSM
 # kernels at 20 windows x this many rows, and the main path must stay within.
@@ -1110,19 +1354,11 @@ def main() -> int:
     after_keygen = counts()
     keygen_batches = len(batches)
     launch_shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
-    restore = [
-        _launch_recorder(M, "montmul_cuda", lambda spec, a, b, *_, **__: (
-            max(a[0].numel(), b[0].numel(), torch.broadcast_shapes(a.shape, b.shape)[1:].numel()),
-            a.numel() == 8, b.numel() == 8), launch_shapes["montmul"]),
-        _launch_recorder(N, "stage_a", lambda spec, x, tw, log_t, cq=0: (
-            x.shape[1], x.shape[2], log_t, cq), launch_shapes["ntt_stage_a"]),
-        _launch_recorder(N, "stage_b", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
-                         launch_shapes["ntt_stage_b"])]
+    stop_shapes = _record_launch_shapes(launch_shapes)
     t0 = time.time()
     proof = prove()
     prove_s = time.time() - t0
-    for undo in restore:
-        undo()
+    stop_shapes()
     spans = dict(PR.LAST_SPANS)
     per_proof = {k: v - after_keygen[k] for k, v in counts().items()}
     log(f"[prove] {len(proof)} bytes in {prove_s:.1f}s spans="
@@ -1215,7 +1451,78 @@ def main() -> int:
             f"replayed {ms:.4f} ms against a bound of {bound:.4f} ms")
     rows["ec_add_unsafe"]["routes"] = routes
 
-    # 9. counters and the kernels line
+    # 9. the on-chain half at k=17 through api, on the v3 route
+    t9 = time.time()
+    key_dir, pk_path, vk_path = phase_keys_on_disk(api, params, signed, proof, dev)
+    #    the GWC/Keccak proof, with the launch counters from zero
+    gwc_batches = []
+    stop_recording = _record_window_sums(gwc_batches)
+    gwc_shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+    stop_shapes = _record_launch_shapes(gwc_shapes)
+    zero_counts()
+    t0 = time.time()
+    gwc = api.generate_proof_evm(*signed, proving_key_path=pk_path, device=dev,
+                                 rng=_det_rng(b"chip_smoke"))
+    gwc_s = time.time() - t0
+    gwc_launches = counts()
+    stop_shapes()
+    stop_recording()
+    gwc_spans = dict(PR.LAST_SPANS)
+    gwc_sizes = [sc.shape[1] for _, sc in gwc_batches]
+    log(f"[gwc] {len(gwc)} bytes in {gwc_s:.1f}s spans="
+        + json.dumps({k: round(v, 3) for k, v in gwc_spans.items()})
+        + f"; launches {json.dumps(gwc_launches)}; commit batches {gwc_sizes}; launch shapes "
+        + json.dumps({k: len(v) for k, v in gwc_shapes.items()}))
+    t0 = time.time()
+    if not api.verify_evm(gwc, vk_path, device=dev):
+        fail("api.verify_evm rejected the port's own GWC proof")
+    if api.verify_evm(_flip(gwc), vk_path, device=dev):
+        fail("api.verify_evm accepted a tampered GWC proof")
+    with open(os.path.join(ROOT, "results", "proof_gwc_k17.hex")) as f:
+        if not api.verify_evm(bytes.fromhex(f.read().strip()), vk_path, device=dev):
+            fail("the port's verifier rejected the JAX package's k=17 GWC proof")
+    log(f"[gwc] verify_evm: own proof accepted, tampered rejected, "
+        f"results/proof_gwc_k17.hex accepted ({time.time() - t0:.1f}s)")
+    n_gwc = len(gwc_sizes)
+    want = {"msm_interior": n_gwc, "msm_combine": n_gwc, "msm_scan": 2 * n_gwc}
+    if any(gwc_launches[k] != v for k, v in want.items()):
+        fail(f"the GWC proof's v3 launches {gwc_launches} are not {want} for {n_gwc} batches")
+    if gwc_launches["serial_bucket_sums"]:
+        fail("the GWC proof ran the serial bucket sum")
+    #    launch shapes and commit batches the v3 proof did not have, against
+    #    the plain versions
+    new_shapes = phase_new_launch_shapes(dev, gen, launch_shapes, gwc_shapes)
+    main_sizes = set(sizes[keygen_batches:])
+    for i, (points, scalars) in enumerate(gwc_batches):
+        if i != n_gwc - 1 and scalars.shape[1] in main_sizes:
+            continue
+        crow, _, _ = _msm_stages(E.BN254_CURVE, points, scalars, MS._default_c(srs.n),
+                                 MF.lanes_for(srs.n))
+        errs = {k: v["err"] for k, v in crow.items()}
+        log(f"[gwc] v3 MSM kernels on the GWC proof's batch {i} (B={scalars.shape[1]}): "
+            f"max_abs_err={errs}")
+        if any(errs.values()):
+            fail(f"the v3 MSM kernels disagree with their plain versions on the GWC batch {i}")
+        new_shapes += 1
+    del gwc_batches
+    log(f"[gwc] {new_shapes} new launch shapes and batches equal their plain versions")
+    #    SHPLONK over Keccak
+    t0 = time.time()
+    shk = api.generate_proof_evm(*signed, proving_key_path=pk_path, scheme="shplonk",
+                                 device=dev, rng=_det_rng(b"chip_smoke"))
+    shk_s = time.time() - t0
+    if not api.verify_evm(shk, vk_path, scheme="shplonk", device=dev):
+        fail("api.verify_evm rejected the port's own SHPLONK/Keccak proof")
+    log(f"[shplonk-keccak] {len(shk)} bytes in {shk_s:.1f}s, verify_evm accepted it")
+    #    the verifiers in the port's EVM
+    evm = phase_verifiers(api, key_dir, vk_path, dev, {"gwc": gwc, "shplonk": shk})
+    shutil.rmtree(key_dir)
+    precompiles = _precompile_seconds(srs)
+    log(f"[onchain] done ({time.time() - t9:.1f}s): " + json.dumps(dict(
+        gwc_proof_s=gwc_s, gwc_bytes=len(gwc), shplonk_keccak_s=shk_s,
+        precompiles=precompiles, evm=evm)))
+
+    # 10. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -1226,10 +1533,15 @@ def main() -> int:
     want = {"msm_interior": n_proof, "msm_combine": n_proof, "msm_scan": 2 * n_proof}
     if any(per_proof[k] != v for k, v in want.items()):
         fail(f"the proof's v3 launches {per_proof} are not {want} for {n_proof} batches")
-    if max(sizes) > COMMIT_BATCH:
-        fail(f"a commit batch of {max(sizes)} exceeds the {COMMIT_BATCH} checked in phase 2")
+    if max(sizes + gwc_sizes) > COMMIT_BATCH:
+        fail(f"a commit batch of {max(sizes + gwc_sizes)} exceeds the {COMMIT_BATCH} "
+             "checked in phase 2")
     by_path = {"v3": launches, "serial": serial, "v1": v1,
-               "mxu": {"mxu_montmul": mxu_launches}}
+               "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches}
+    for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
+                 "msm_combine"):
+        if gwc_launches[name] == 0:
+            fail(f"kernel {name} was never launched on the GWC route")
     for name in KERNEL_META:
         path, counter = KERNEL_PATH.get(name, ("v3", name))
         if by_path[path][counter] == 0:

@@ -46,7 +46,8 @@ def test_port_has_the_slice_modules():
                 "plonk/srs.py", "plonk/cs.py", "plonk/keygen.py", "plonk/fused.py",
                 "plonk/prover.py", "plonk/verifier.py", "plonk/transcript.py",
                 "utils/keccak.py", "fields/pairing.py", "circuits/ecdsa_circuit.py",
-                "api.py", "convert.py"):
+                "api.py", "convert.py", "evm/codegen.py", "evm/yul_asm.py",
+                "evm/machine.py", "evm/yul_interp.py", "plonk/pk_cache.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",
@@ -100,6 +101,22 @@ def test_api_defaults_to_the_card():
         api.verify(b"")
     with pytest.raises(RuntimeError, match="CUDA"):
         api.verify_evm(b"", scheme="shplonk")
+
+
+def test_onchain_api_defaults_to_the_card(tmp_path):
+    from webauthn_halo2_tpu_torch import api
+
+    _no_card()
+    z = bytes(32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proof_evm(z, z, z, z, z)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_verifier(sol_code_path=str(tmp_path / "v.sol"),
+                              deploy_code_path=str(tmp_path / "v.code"),
+                              yul_code_path=str(tmp_path / "v.yul"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.download_keys(17, str(tmp_path / "pk.json"), str(tmp_path / "vk.json"))
+    assert not list(tmp_path.iterdir())
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -8,19 +8,24 @@ transcript digest and the proof bytes. The port must reproduce both byte
 for byte, on the default (v3) commit route, the serial one and the v1
 one, and its verifier must accept the JAX proofs. The `slow` test
 recomputes the stored values live from the JAX package and has the JAX
-verifier accept the port's proofs.
+verifier accept the port's proofs. The same holds for the EVM route: GWC
+and SHPLONK proofs over the Keccak transcript, stored under `keccak`.
 """
 import functools
 import hashlib
 
+import numpy as np
 import pytest
 import torch
 
 from webauthn_halo2_tpu_torch.fields.constants import BN254_FR
+from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
 from webauthn_halo2_tpu_torch.plonk import cs as CS
+from webauthn_halo2_tpu_torch.plonk.fused import FusedPhases
 from webauthn_halo2_tpu_torch.plonk.keygen import keygen
 from webauthn_halo2_tpu_torch.plonk.prover import create_proof
 from webauthn_halo2_tpu_torch.plonk.srs import get_srs
+from webauthn_halo2_tpu_torch.plonk.transcript import KeccakRead, KeccakWrite
 from webauthn_halo2_tpu_torch.plonk.verifier import verify_proof
 
 # The suite runs several test processes on one host (pytest-xdist); torch's
@@ -31,7 +36,8 @@ torch.set_num_threads(2)
 R = BN254_FR
 K = 6
 
-# JAX package outputs (keygen -> create_proof with _det_rng(seed)), K=6
+# JAX package outputs (keygen -> create_proof with _det_rng(seed)), K=6;
+# `keccak`: the same with transcript=KeccakWrite(), per multiopen scheme
 JAX_REF = {
     "toy": dict(
         seed=b"toy",
@@ -67,6 +73,100 @@ JAX_REF = {
         "0dbf9296d5340f0ec71090b5c9d3b0841a8a187131732d1f97181f80793a3f0b"
         "64cce99602686a19eedc5c3f371809292650d07811eb08327d3499c68410031c"
     ),
+        keccak=dict(
+            gwc=(
+            "0f7cab8f03972ca05b580bb2a57a964fa559d01a602e07a806df2ba2d7b2c874"
+            "1788b4b020d91ee97d5319aa156e521bf1f6d24f31ad16dee95ee9e1bf924ce2"
+            "037a1eef6bb941660860056ea64029dde37cd613d9959816670fc76b1f23c598"
+            "03e16da5aa33947d1bd77e63e86fb7d8bf74dbaca6dfbfd15b96b2e051950a3e"
+            "14c75f7cf51a567b2880716c4b0424030a1ec0f0b54e4320e645ee9cf7ab6d86"
+            "3020f9c37af3fcc9891a62296bfeb3513db7d56dbd6de67134d655ba6295f3e5"
+            "1d1de77b3146810142f888176d88fe0dceb0a4aaed1f8fa844131a3ffc50cb0d"
+            "0b5249e74d071746d09d7305f6f0ad5045c566076a326a4ac8332518ab745e63"
+            "0b29118a63d035269b1698fe23f45349c1eb19ecdd20e2dfc0a9baae71e2dd0b"
+            "10997d6c1fa5e97f6456a9e2df8ba19037befd2c0a74ed14c6d5285470b4e7a2"
+            "262dde120cc586c7e4241670cec2f58023a334f9ac28d10cd603bec74035c4dd"
+            "0e21f023586e80a21656bfbcd285239bd28a04109dae5c5a53ad0b348c7ff5be"
+            "1e117400dcb70939bcfefe8085a6b9e41363809b93e3867acacb84fbad6bdbfd"
+            "036dd9cb437a41cba0a44cc5e90a81b449161fa888483e77987e476bd21bebc3"
+            "1ae107289f23a7d32414b9769fa69994919535498834290062816a7257f79052"
+            "2d93977214602e02f36dd8ca945b9689bbf6d65675268c4278bfac9f826d1380"
+            "058e9b3139533386fd619d082273f7c5e2a94d8624ec26a0bb499a3d754be151"
+            "292b615303573fce59dbc5ab41a5c2ae9565f776566c3ad77fe2f07bede32cc7"
+            "11739918ad0ed2035abd35f95efd9bc51e0f0e664fe2ab04311ce73273ddcc38"
+            "0c402f51a73c3ae2d395daadd54c7a31f741d174695141497ab0e34c813f5e05"
+            "1656918fabff4b9b17caaa0170a13155692f86832181733de98002ff0261eb22"
+            "003b7328e99b3c71fa2727f10b2f027d3bf5129471ae5afc8f45a04289218a9e"
+            "029a61ff9c2fae67c6a3925be3e0f1cd1355b76d9b276e1f8ebd3b13e1c4bbdf"
+            "0ada68d42464886d44cb0edfada4b66f11b5dc7fcad1885b25ce343791049a98"
+            "02e9410690ac7b3d9de3cb919bb50ac6ee9c0e7cff488a54d2b3417ebf23b411"
+            "11772c3ae6c2dc316e93694201805f7a32482066c84bc76ee0433d5291a304c8"
+            "0738159561ad24718900b56da3904404457decbdd7b06a7d9f7b85859aa2a944"
+            "11c26ee18f84f31f070b8138cbdc87da5c56b5cc3702b5082f98a3b426996389"
+            "24a018bda568cbd5ad086b3a493a3061d1e2d9f7ee72c3fbd0b707af80e0341c"
+            "112aa2ef3dd7e92c1d563f39f14310ec25556a2f1c2eb0c496257c3e82f2472d"
+            "238ce50891f84d1fccee79d9d7a7a622cf01daffb524657e3013c67526da7e4a"
+            "280b11ae336d5fc9c71cbd61346549f0b8690293e69cf2fc1d4f356f92819570"
+            "0ea00d8689eaeb2e1c593536588e04d52b4f2abd13785e7d0c4825ae2a8c8d2b"
+            "26e120c51f832312317104e4fcb1123788b68869688f4309b2c9be15d4bc12bd"
+            "2f6e346f0c3d29ef6c30d143719a2703c66eaa62a815a171a17af3c0973748ac"
+            "051d616b118118a4f320009b903619a73bd7188d078d3224a65678bcb0568c30"
+            "280b73e3e68cfdf835972504c728d9a17760ee91ab22f25b287ae344a8419780"
+            "2d768b86cc6f83d28c35cb0b20a542991709ce43295fcc622445c460c6cffe8b"
+            "0a3ba5b3243401bfbb0d38e33727c509c9456208b51e7f9a034f8d6f77e98de6"
+            "0929f2ca709befcfbf8a37ff306fee4a87421ae9c089a6ed806ec012f5e938d2"
+            "2c19bea8e11ac85aa359df7aff6affc90e518d4ac0a9005e801d4353ab241f71"
+            "113867e30673514e3ecbb1c6e536aeb3ed3bbff0dc2064aeab0f33204a7a2996"
+            "24c5b111d13331720f77d424467277d17d6258d447a246f9f541340490776d4c"
+            "16bc872942237abfb94cb85b8b8267c51fdafaa72ede000d9efc3b05287e3e3f"
+            "0c386f8a7ea5a1d404aa7c815f7b298567c80c02cd937591449430416ac35f64"
+            "1d50622578767707738ef28509015ceab5452c0feb84020e18245c065474cc7d"
+            "1a08382c4e8cf577b647c1bc16d99845de819808a340000ddf537905109b252b"
+            ),
+            shplonk=(
+            "0f7cab8f03972ca05b580bb2a57a964fa559d01a602e07a806df2ba2d7b2c874"
+            "1788b4b020d91ee97d5319aa156e521bf1f6d24f31ad16dee95ee9e1bf924ce2"
+            "037a1eef6bb941660860056ea64029dde37cd613d9959816670fc76b1f23c598"
+            "03e16da5aa33947d1bd77e63e86fb7d8bf74dbaca6dfbfd15b96b2e051950a3e"
+            "14c75f7cf51a567b2880716c4b0424030a1ec0f0b54e4320e645ee9cf7ab6d86"
+            "3020f9c37af3fcc9891a62296bfeb3513db7d56dbd6de67134d655ba6295f3e5"
+            "1d1de77b3146810142f888176d88fe0dceb0a4aaed1f8fa844131a3ffc50cb0d"
+            "0b5249e74d071746d09d7305f6f0ad5045c566076a326a4ac8332518ab745e63"
+            "0b29118a63d035269b1698fe23f45349c1eb19ecdd20e2dfc0a9baae71e2dd0b"
+            "10997d6c1fa5e97f6456a9e2df8ba19037befd2c0a74ed14c6d5285470b4e7a2"
+            "262dde120cc586c7e4241670cec2f58023a334f9ac28d10cd603bec74035c4dd"
+            "0e21f023586e80a21656bfbcd285239bd28a04109dae5c5a53ad0b348c7ff5be"
+            "1e117400dcb70939bcfefe8085a6b9e41363809b93e3867acacb84fbad6bdbfd"
+            "036dd9cb437a41cba0a44cc5e90a81b449161fa888483e77987e476bd21bebc3"
+            "1ae107289f23a7d32414b9769fa69994919535498834290062816a7257f79052"
+            "2d93977214602e02f36dd8ca945b9689bbf6d65675268c4278bfac9f826d1380"
+            "058e9b3139533386fd619d082273f7c5e2a94d8624ec26a0bb499a3d754be151"
+            "292b615303573fce59dbc5ab41a5c2ae9565f776566c3ad77fe2f07bede32cc7"
+            "11739918ad0ed2035abd35f95efd9bc51e0f0e664fe2ab04311ce73273ddcc38"
+            "0c402f51a73c3ae2d395daadd54c7a31f741d174695141497ab0e34c813f5e05"
+            "1656918fabff4b9b17caaa0170a13155692f86832181733de98002ff0261eb22"
+            "003b7328e99b3c71fa2727f10b2f027d3bf5129471ae5afc8f45a04289218a9e"
+            "029a61ff9c2fae67c6a3925be3e0f1cd1355b76d9b276e1f8ebd3b13e1c4bbdf"
+            "0ada68d42464886d44cb0edfada4b66f11b5dc7fcad1885b25ce343791049a98"
+            "02e9410690ac7b3d9de3cb919bb50ac6ee9c0e7cff488a54d2b3417ebf23b411"
+            "11772c3ae6c2dc316e93694201805f7a32482066c84bc76ee0433d5291a304c8"
+            "0738159561ad24718900b56da3904404457decbdd7b06a7d9f7b85859aa2a944"
+            "11c26ee18f84f31f070b8138cbdc87da5c56b5cc3702b5082f98a3b426996389"
+            "24a018bda568cbd5ad086b3a493a3061d1e2d9f7ee72c3fbd0b707af80e0341c"
+            "112aa2ef3dd7e92c1d563f39f14310ec25556a2f1c2eb0c496257c3e82f2472d"
+            "238ce50891f84d1fccee79d9d7a7a622cf01daffb524657e3013c67526da7e4a"
+            "280b11ae336d5fc9c71cbd61346549f0b8690293e69cf2fc1d4f356f92819570"
+            "0ea00d8689eaeb2e1c593536588e04d52b4f2abd13785e7d0c4825ae2a8c8d2b"
+            "26e120c51f832312317104e4fcb1123788b68869688f4309b2c9be15d4bc12bd"
+            "2f6e346f0c3d29ef6c30d143719a2703c66eaa62a815a171a17af3c0973748ac"
+            "051d616b118118a4f320009b903619a73bd7188d078d3224a65678bcb0568c30"
+            "280b73e3e68cfdf835972504c728d9a17760ee91ab22f25b287ae344a8419780"
+            "03e3212565987bb77a29e15837aece0c5ee47024b98eaca0cca48434a70c2e67"
+            "0220758124e0d4cca8a101bf1d7cc46c0fe8e6516093699606b04f9d987705ab"
+            "11d8c500a127c953647770dac2b6481937460c05addb6250f49ff8309bec53da"
+            "2956526ee2ef8b863d6607f2e0aa42059b0f6d5fb1b4367eeae6ebbca7016312"
+            ),
+        ),
     ),
     "pub": dict(
         seed=b"pub",
@@ -82,6 +182,38 @@ JAX_REF = {
         "5e3869d6f560b7655472d05584b9650f037b02e637ab3c8b19c80401b1725318"
         "5e3869d6f560b7655472d05584b9650f037b02e637ab3c8b19c80401b1725318"
     ),
+        keccak=dict(
+            gwc=(
+            "0e67f11d761fc78756cb76f9cb632ae7096a1f253ccfa501df2abfeac3f7f373"
+            "03915107b3dd86fc46a36b1fd1a1a0137b51b3f97e7dcc094364c4ef27a2513b"
+            "0817a4f10f4da277498aba71d0802c22b0d0fae05419e3d55ae2b5e56fba78f4"
+            "24c15d2689ed199c87c2b78cadab4ceea7683ff507afa85f7b3f4903752d85a3"
+            "097c0ca0d51aa8ee34b7e6c69f6c6f2cf0d39b38612d63b86ccd575d46a0dfe6"
+            "13f28d3072ecf86d36214b16cf88b9ff51eec432a0e383262ea3c75f8c8a965f"
+            "21776992d849b845f1afdca9ab6cff8cc25359aafb8ea7dbe2bd7a39d2a3329e"
+            "2a85227ca9aeed50b28baaf61299d31e390f04b2fcd16cf0e9a78e4a8d820deb"
+            "19161f11f99729c138d6af33bec04595738ec142944c163cd0692ef22f5ff770"
+            "0dafeca71f36864d0b5167516341e6b7146e8622872464c98762aea5c1b1a11c"
+            "1e941c9fbab27590cd9e7c889aaca12acbbe8d2ed9b27c1cbc755357cd5cd943"
+            "1e0b0d6ff0e094dce2efec8808a69975596a2bed2211cf965984bd618c29b255"
+            ),
+            shplonk=(
+            "0e67f11d761fc78756cb76f9cb632ae7096a1f253ccfa501df2abfeac3f7f373"
+            "03915107b3dd86fc46a36b1fd1a1a0137b51b3f97e7dcc094364c4ef27a2513b"
+            "0817a4f10f4da277498aba71d0802c22b0d0fae05419e3d55ae2b5e56fba78f4"
+            "24c15d2689ed199c87c2b78cadab4ceea7683ff507afa85f7b3f4903752d85a3"
+            "097c0ca0d51aa8ee34b7e6c69f6c6f2cf0d39b38612d63b86ccd575d46a0dfe6"
+            "13f28d3072ecf86d36214b16cf88b9ff51eec432a0e383262ea3c75f8c8a965f"
+            "21776992d849b845f1afdca9ab6cff8cc25359aafb8ea7dbe2bd7a39d2a3329e"
+            "2a85227ca9aeed50b28baaf61299d31e390f04b2fcd16cf0e9a78e4a8d820deb"
+            "19161f11f99729c138d6af33bec04595738ec142944c163cd0692ef22f5ff770"
+            "0dafeca71f36864d0b5167516341e6b7146e8622872464c98762aea5c1b1a11c"
+            "0c044440e1e6ede7d80223d39357299de647b55916d9010c1155982cea549cf5"
+            "2c470529cbfd2f1218da2f0bc49cdcbdc00ed1f1de6bdd9773f8c6e4a19978b3"
+            "0c044440e1e6ede7d80223d39357299de647b55916d9010c1155982cea549cf5"
+            "2c470529cbfd2f1218da2f0bc49cdcbdc00ed1f1de6bdd9773f8c6e4a19978b3"
+            ),
+        ),
     ),
 }
 
@@ -226,6 +358,98 @@ def test_v1_msm_route_gives_the_same_proof(port_proof, monkeypatch):
     assert proof.hex() == JAX_REF[name]["proof"]
 
 
+@functools.lru_cache(maxsize=None)
+def _keccak_proof(name: str, scheme: str) -> bytes:
+    """The port's proof of `name` over the Keccak (EVM) transcript."""
+    _, pk, instances, _ = _keyed_and_proved(name)
+    _, _, advice, _, _ = CIRCUITS[name](CS)
+    return create_proof(pk, advice, instances, rng=_det_rng(JAX_REF[name]["seed"]),
+                        scheme=scheme, transcript=KeccakWrite(), device="cpu")
+
+
+@pytest.mark.parametrize("scheme", ["gwc", "shplonk"])
+def test_keccak_proof_matches_jax_byte_for_byte(port_proof, scheme):
+    """GWC (the EVM route's default) and SHPLONK over the Keccak transcript:
+    the same bytes as the JAX package's."""
+    name = port_proof[0]
+    assert _keccak_proof(name, scheme).hex() == JAX_REF[name]["keccak"][scheme]
+
+
+@pytest.mark.parametrize("scheme", ["gwc", "shplonk"])
+def test_port_verifier_accepts_jax_keccak_proof_and_rejects_tampering(port_proof, srs, scheme):
+    name, pk, instances, _ = port_proof
+    jax_proof = bytes.fromhex(JAX_REF[name]["keccak"][scheme])
+
+    def verify(proof, inst):
+        return verify_proof(pk.vk, srs, proof, inst, scheme=scheme,
+                            transcript=KeccakRead(proof))
+
+    assert verify(jax_proof, instances)
+    bad = bytearray(jax_proof)
+    bad[len(bad) // 2] ^= 1
+    assert not verify(bytes(bad), instances)
+    other = "shplonk" if scheme == "gwc" else "gwc"
+    assert not verify_proof(pk.vk, srs, jax_proof, instances, scheme=other,
+                            transcript=KeccakRead(jax_proof))
+    if instances:
+        assert not verify(jax_proof, [[43, 99]])
+
+
+@pytest.mark.parametrize("port_proof", ["toy"], indirect=True)
+def test_create_proof_rejects_an_unknown_scheme(port_proof):
+    name, pk, instances, _ = port_proof
+    _, _, advice, _, _ = CIRCUITS[name](CS)
+    with pytest.raises(ValueError, match="bogus"):
+        create_proof(pk, advice, instances, scheme="bogus", device="cpu")
+
+
+def _host_eval(coeffs: list, x: int) -> int:
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % R
+    return acc
+
+
+@pytest.mark.parametrize("port_proof", ["toy"], indirect=True)
+def test_gwc_w_divides_each_group(port_proof):
+    """FusedPhases.gwc_w on random coefficient rows: for each rotation
+    group, W(X) (X - z) + r_comb = F(X) at a random X, F the group's rows
+    folded by Horner in v and r_comb = F(z), in host integers; the unified
+    stack is left as it was (a group of one must not write into it)."""
+    _, pk, _, _ = port_proof
+    fp = FusedPhases(pk)
+    n = pk.vk.domain.n
+    gen = np.random.default_rng(8)
+
+    def rand() -> int:
+        return int.from_bytes(gen.bytes(32), "little") % R
+
+    rows = [[rand() for _ in range(n)] for _ in range(fp.u_total)]
+    ucoeff = torch.as_tensor(FR_SPEC.encode([c for row in rows for c in row])).reshape(
+        8, fp.u_total, n)
+    before = ucoeff.clone()
+    groups = ((0,), (1, fp.u_total - 1, 2), (fp.u_h,))
+    v, zs, x = rand(), [rand() for _ in groups], rand()
+    folded, rcombs = [], []
+    for members, z in zip(groups, zs):
+        F = [0] * n
+        for ui in members:
+            F = [(f * v + c) % R for f, c in zip(F, rows[ui])]
+        folded.append(F)
+        rcombs.append(_host_eval(F, z))
+
+    def mont(val):
+        return torch.as_tensor(FR_SPEC.encode([val]))
+
+    W_list = fp.gwc_w(groups, ucoeff, mont(v), [mont(r) for r in rcombs],
+                      [mont(z) for z in zs])
+    assert torch.equal(ucoeff, before)
+    assert len(W_list) == len(groups)
+    for W_t, F, z, r_comb in zip(W_list, folded, zs, rcombs):
+        W_host = FR_SPEC.decode(W_t)
+        assert (_host_eval(W_host, x) * (x - z) + r_comb) % R == _host_eval(F, x)
+
+
 def _jax_outputs(name: str):
     """Key and prove `name` with the JAX package: (transcript_repr, proof,
     JAX vk, JAX srs, instances)."""
@@ -234,22 +458,35 @@ def _jax_outputs(name: str):
     from webauthn_halo2_tpu.plonk.prover import create_proof as jcreate_proof
     from webauthn_halo2_tpu.plonk.srs import get_srs as jget_srs
 
+    from webauthn_halo2_tpu.plonk.transcript import KeccakWrite as JKeccakWrite
+
     cs, fixed, advice, instances, copies = CIRCUITS[name](JCS)
     srs_ = jget_srs(K)
     pk = jkeygen(srs_, cs, fixed, copies)
     proof = jcreate_proof(pk, advice, instances,
                           rng=_det_rng(JAX_REF[name]["seed"]))
-    return pk.vk.transcript_repr, proof, pk.vk, srs_, instances
+    keccak = {scheme: jcreate_proof(pk, advice, instances,
+                                    rng=_det_rng(JAX_REF[name]["seed"]),
+                                    scheme=scheme, transcript=JKeccakWrite())
+              for scheme in ("gwc", "shplonk")}
+    return pk.vk.transcript_repr, proof, pk.vk, srs_, instances, keccak
 
 
 @pytest.mark.slow
 def test_stored_jax_outputs_are_current(port_proof):
     """Regenerates JAX_REF live and has the JAX verifier accept the port's
-    proof (minutes: XLA:CPU compiles the JAX prover's graphs)."""
+    proofs, Blake2b and both Keccak ones (minutes: XLA:CPU compiles the
+    JAX prover's graphs)."""
+    from webauthn_halo2_tpu.plonk.transcript import KeccakRead as JKeccakRead
     from webauthn_halo2_tpu.plonk.verifier import verify_proof as jverify
 
     name, _, instances, proof = port_proof
-    repr_, jproof, jvk, jsrs, _ = _jax_outputs(name)
+    repr_, jproof, jvk, jsrs, _, keccak = _jax_outputs(name)
     assert repr_ == JAX_REF[name]["transcript_repr"]
     assert jproof.hex() == JAX_REF[name]["proof"]
     assert jverify(jvk, jsrs, proof, instances)
+    for scheme, jk in keccak.items():
+        assert jk.hex() == JAX_REF[name]["keccak"][scheme]
+        port = _keccak_proof(name, scheme)
+        assert jverify(jvk, jsrs, port, instances, scheme=scheme,
+                       transcript=JKeccakRead(port))

@@ -336,6 +336,29 @@ class FusedPhases:
         ginv = pow(COSET_GEN, R - 2, R)
         return N.coset_shift(SPEC, N.intt(SPEC, W_cos, k), ginv)
 
+    # -- phase 8 (GWC): one witness a rotation group -------------------------
+    def _gwc_one(self, members, uc, v, rcomb, zpt, xs_coset):
+        k = self.domain.k
+        F = uc[:, members[0]]
+        for ui in members[1:]:
+            F = M.add(SPEC, M.montmul(SPEC, F, v), uc[:, ui])
+        # a group of one leaves F a view of uc: build it anew, never in place
+        F = torch.cat([M.sub(SPEC, F[:, 0:1], rcomb), F[:, 1:]], dim=1)
+        F_cos = N.ntt(SPEC, N.coset_shift(SPEC, F, COSET_GEN), k)
+        den = M.sub(SPEC, xs_coset, zpt)
+        W_cos = M.montmul(SPEC, F_cos, M.batch_inverse(SPEC, den, axis=1))
+        ginv = pow(COSET_GEN, R - 2, R)
+        return N.coset_shift(SPEC, N.intt(SPEC, W_cos, k), ginv)
+
+    def gwc_w(self, group_struct, ucoeff, v_t, rcomb_list, zpts_list):
+        """group_struct: (unified_idx...) per rotation group, in
+        first-occurrence order; rcomb_list/zpts_list: (8, 1) per group.
+        Returns W_coeff (8, n) per group: (F - r_comb) / (X - z)."""
+        xs_coset = coset_points(self.domain.k, ucoeff.device)
+        return [self._gwc_one(members, ucoeff, v_t, rcomb_list[g_i],
+                              zpts_list[g_i], xs_coset)
+                for g_i, members in enumerate(group_struct)]
+
     # -- unified multiopen stack ---------------------------------------------
     def unified_stack(self, coeff_stack, fixed_coeff, sigma_coeff, h_combined):
         parts = [coeff_stack]

@@ -1,10 +1,11 @@
-"""The PLONKish prover: create_proof (KZG + SHPLONK + Blake2b transcript).
+"""The PLONKish prover: create_proof (KZG; SHPLONK or GWC; Blake2b or Keccak).
 
 The port of the JAX package's plonk/prover.py. Protocol phases follow the
 PSE halo2 structure: advice commits -> theta -> lookup permuted commits ->
 beta/gamma -> permutation and lookup grand products -> vanishing random
 poly -> y -> quotient pieces -> x -> evaluations -> SHPLONK multiopen
-(v/y challenges, H commitment, u challenge, final witness W).
+(v/y challenges, H commitment, u challenge, final witness W), or GWC
+(challenge v, one witness commitment per distinct rotation).
 
 `rng(nbytes) -> bytes` is called in exactly the JAX package's order
 (advice blinding, lookup blinding, random poly, grand-product tails), so
@@ -107,8 +108,9 @@ def create_proof(
     """Prove on `device` (None: the card), where the pk must lie."""
     if resolve(device).type != pk.device.type:
         raise ValueError(f"pk lies on {pk.device}, create_proof asked for {device}")
-    if scheme != "shplonk":
-        raise ValueError(f"multiopen scheme {scheme!r} is not ported; use shplonk")
+    opens = {"shplonk": _shplonk_open, "gwc": _gwc_open}
+    if scheme not in opens:
+        raise ValueError(f"unknown multiopen scheme {scheme!r}")
     cs = pk.vk.cs
     domain: Domain = pk.vk.domain
     dev = pk.device
@@ -254,7 +256,7 @@ def create_proof(
     with _Span("multiopen", dev):
         ucoeff = fp.unified_stack(coeff_stack, pk._fixed_coeff_stack,
                                   pk._sigma_coeff_stack, h_comb)
-        _shplonk_open(pk, fp, t, queries, rot_point, ucoeff)
+        opens[scheme](pk, fp, t, queries, rot_point, ucoeff)
     return t.finalize()
 
 
@@ -348,6 +350,30 @@ def _shplonk_open(pk, fp: FusedPhases, t, queries, rot_point, ucoeff):
         torch.as_tensor(SPEC.encode(rus)).to(dev),
         _mont_const(z_t_u, dev), _mont_const(u_ch, dev))
     t.write_point(commit_coeff(pk.srs, W_coeff))
+
+
+def _gwc_open(pk, fp: FusedPhases, t, queries, rot_point, ucoeff):
+    """GWC19 batch opening (the EVM path): one witness commitment per
+    distinct rotation, the groups in first-occurrence order of `queries`."""
+    dev = ucoeff.device
+    v = t.squeeze_challenge()
+    groups: dict[int, list] = {}
+    for label, rot, ev in queries:
+        groups.setdefault(rot, []).append((label, ev))
+
+    group_struct, rcomb_list, zpt_list = [], [], []
+    for rot, polys in groups.items():
+        group_struct.append(tuple(fp.uidx(lbl) for lbl, _ in polys))
+        r_comb = 0
+        for _lbl, ev in polys:
+            r_comb = (r_comb * v + ev) % R
+        rcomb_list.append(_mont_const(r_comb, dev))
+        zpt_list.append(_mont_const(rot_point(rot), dev))
+    W_list = fp.gwc_w(tuple(group_struct), ucoeff, _mont_const(v, dev),
+                      rcomb_list, zpt_list)
+    # one batch: the points do not depend on it, the transcript order stays
+    for pt in commit_coeff_batch(pk.srs, torch.stack(W_list, dim=1)):
+        t.write_point(pt)
 
 
 def _interp(pts: list[int], evs: list[int]) -> list[int]:
