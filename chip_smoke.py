@@ -71,11 +71,26 @@ Phases, one or more lines each:
      JAX package's proofs run at exactly the gas of results/evm_gas.json,
      the port's own within 0.5% of it, and tampered and truncated proofs
      revert, each call timed;
- 10. every kernel of a path launched during that path's run (each run with
+ 10. ES256 (tests/test_torch_mock.py, tests/test_torch_prover.py hold the
+     JAX package's outputs it compares with): the circuit at k=17 (SHA-256
+     of authenticator data and client-data hash in the circuit, then
+     ECDSA-P256; two-column pair lookups) synthesised with the digest of
+     the JAX package's synthesis; the mock prover on the card finds nothing
+     on its witness and, with one SHA-256 cell plus one, the JAX package's
+     findings; keygen (time, spans, commit batches, peak memory); a warm-up
+     proof, then three proofs of fresh signatures from one seeded key, each
+     timed and accepted by verify_proof, the first with its spans, launches,
+     commit batches and peak memory; a flipped and a truncated proof
+     rejected; the warm-up's rng again gives the same bytes; every montmul
+     and NTT launch shape and commit batch the earlier phases did not check,
+     against the plain versions; the K=6 two-column lookup circuit proved
+     on the v3, v1 and serial routes, each proof equal to the JAX bytes;
+     a JSON line of its numbers before the card's line;
+ 11. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
      the serial bucket sum did not run on the v3 route, and rows 1-6 ran on
-     the GWC route; a `kernels` JSON
+     the GWC and ES256 paths; a `kernels` JSON
      line with launches, times, bounds, the plain versions' times, for the
      MSM kernels their times and bounds over the proof's batches (the
      combine's also per batch), and for rows 1-3 the proof's launch shapes.
@@ -1101,12 +1116,19 @@ def phase_keys_on_disk(api, params, signed, proof, dev):
     return key_dir, pk_path, vk_path
 
 
-def phase_new_launch_shapes(dev, gen, seen: dict, new: dict) -> int:
+def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
+                            seen_sizes=(), batches=()) -> int:
     """Each montmul and NTT launch shape in `new` that `seen` lacks, against
-    its plain version on random words at that shape, exact. Returns how
-    many were checked."""
+    its plain version on random words at that shape, exact; then the v3 MSM
+    kernels on each commit batch of `batches` (bases, scalars) whose size
+    is not in `seen_sizes`, and on the last (random-scalar) batch, against
+    theirs on that batch, each timed beside its least work. Returns how
+    many shapes and batches were checked."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
     from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
     from webauthn_halo2_tpu_torch.ops import ntt as N
 
     checked = 0
@@ -1126,11 +1148,254 @@ def phase_new_launch_shapes(dev, gen, seen: dict, new: dict) -> int:
                 else:
                     got, want = N.stage_b(FR_SPEC, x, tw, s), N.stage_b_plain(FR_SPEC, x, tw, s)
             err = _max_abs_err(got, want)
-            log(f"[gwc] {name} at the new launch shape {key}: max_abs_err={err}")
+            log(f"[{tag}] {name} at the new launch shape {key}: max_abs_err={err}")
             if err:
-                fail(f"{name} disagrees with its plain version at the GWC proof's shape {key}")
+                fail(f"{name} disagrees with its plain version at the {tag} path's shape {key}")
             checked += 1
+    for i, (points, scalars) in enumerate(batches):
+        if i != len(batches) - 1 and scalars.shape[1] in seen_sizes:
+            continue
+        crow, _, _ = _msm_stages(E.BN254_CURVE, points, scalars, MS._default_c(srs.n),
+                                 MF.lanes_for(srs.n), timed=True, iters=3)
+        errs = {k: v["err"] for k, v in crow.items()}
+        log(f"[{tag}] v3 MSM kernels on the commit batch {i} (B={scalars.shape[1]}): "
+            f"max_abs_err={errs}; " + "; ".join(
+                f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {_bound_ms(r)[0]:.4f} ms, "
+                f"plain {r['plain_ms']:.1f} ms" for k, r in crow.items()))
+        if any(errs.values()):
+            fail(f"the v3 MSM kernels disagree with their plain versions on the {tag} batch {i}")
+        checked += 1
+        torch.cuda.empty_cache()
     return checked
+
+
+def _test_definitions(name: str, *wanted: str) -> dict:
+    """The top-level definitions `wanted` (functions and assignments) of
+    tests/<name>, run without importing the file, which imports the JAX
+    package: the stored JAX outputs and the circuits they were made from."""
+    import ast
+
+    path = os.path.join(ROOT, "tests", name)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+
+    def named(node):
+        if isinstance(node, ast.FunctionDef):
+            return node.name
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name):
+            return node.targets[0].id
+        return None
+
+    body = [node for node in tree.body if named(node) in wanted]
+    if sorted(named(node) for node in body) != sorted(wanted):
+        fail(f"tests/{name} lacks one of {wanted}")
+    found: dict = {}
+    exec(compile(ast.Module(body=body, type_ignores=[]), path, "exec"), found)
+    return found
+
+
+def _es256_signed(key_seed: int, msg_seed: int):
+    """ES256Inputs: a fresh authenticator data and client-data hash from
+    `msg_seed`, signed by the P-256 key made from `key_seed`."""
+    from webauthn_halo2_tpu_torch.circuits.es256_circuit import AUTH_DATA_LEN, ES256Inputs
+    from webauthn_halo2_tpu_torch.fields.ref_curve import (P256_CURVE, ecdsa_keygen,
+                                                           ecdsa_sign)
+
+    sk, pub = ecdsa_keygen(rng=_Seeded(key_seed))
+    rng = random.Random(msg_seed)
+    auth = bytes(rng.randrange(256) for _ in range(AUTH_DATA_LEN))
+    cdh = bytes(rng.randrange(256) for _ in range(32))
+    m = int.from_bytes(hashlib.sha256(auth + cdh).digest(), "big")
+    r, s = ecdsa_sign(m, sk, k=1 + rng.randrange(P256_CURVE.n - 1))
+    return ES256Inputs(r, s, auth, cdh, pub)
+
+
+def _gb(nbytes: int) -> float:
+    return round(nbytes / 1e9, 3)
+
+
+def phase_es256(dev, gen, srs, seen_shapes: dict, seen_sizes: set, counts,
+                zero_counts) -> tuple:
+    """Phase 10: the ES256/WebAuthn circuit at k=17 (in-circuit SHA-256,
+    two-column lookups). Its synthesis digest and the mock's findings on
+    its witness and on the witness with one SHA-256 cell plus one equal the
+    JAX package's (stored in tests/test_torch_mock.py), the mock's gates on
+    the card; keygen, a warm-up proof and three timed proofs of fresh
+    signatures from one seeded key (SHPLONK, Blake2b), each accepted by
+    verify_proof, a flipped and a truncated one rejected, and a repeat of
+    the warm-up under the same rng byte-equal, with the launch counts from
+    zero over keygen, the timed proofs and their verifications; each
+    launch shape and commit batch of keygen and the first timed proof that
+    phases 1-9 did not check, against the plain versions; the K=6
+    two-column lookup circuit of tests/test_torch_prover.py proved on the
+    v3, v1 and serial routes, each equal to the stored JAX bytes. Returns
+    (the launch counts, the numbers for the summary line)."""
+    from webauthn_halo2_tpu_torch.circuits.es256_circuit import ES256Circuit, ES256Inputs
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+    from webauthn_halo2_tpu_torch.ops import msm_v1 as MV
+    from webauthn_halo2_tpu_torch.plonk import cs as CS
+    from webauthn_halo2_tpu_torch.plonk import keygen as KG
+    from webauthn_halo2_tpu_torch.plonk import prover as PR
+    from webauthn_halo2_tpu_torch.plonk.mock import mock_prove
+    from webauthn_halo2_tpu_torch.plonk.pk_cache import synthesis_digest
+    from webauthn_halo2_tpu_torch.plonk.srs import get_srs
+    from webauthn_halo2_tpu_torch.plonk.verifier import verify_proof
+
+    ref = _test_definitions("test_torch_mock.py", "TAMPER", "ES256_JAX")
+    circ = ES256Circuit()
+    k = circ.params.degree
+    if k != srs.k:
+        fail(f"ES256 runs at k={k}, the SRS at k={srs.k}")
+    t0 = time.time()
+    cs, fixed, advice, copies = circ.build(ES256Inputs.dummy())
+    synth_s = time.time() - t0
+    digest = synthesis_digest(cs, fixed, advice, copies)
+    shape = dict(advice=cs.num_advice, fixed=cs.num_fixed,
+                 lookups=[[lk.name, len(lk.inputs)] for lk in cs.lookups],
+                 gates=len(cs.gates), degree=cs.degree(), perm_chunks=cs.num_perm_chunks(),
+                 copies=len(copies))
+    log(f"[es256] synthesis {synth_s:.1f}s: {json.dumps(shape)}; digest {digest}, the JAX "
+        f"package's: {digest == ref['ES256_JAX']['digest']}")
+    if digest != ref["ES256_JAX"]["digest"]:
+        fail("the port's ES256 synthesis differs from the JAX package's")
+
+    # the mock prover, its gates on the card
+    col, row = ref["TAMPER"]
+    bad = list(advice)
+    bad[col] = list(advice[col])
+    bad[col][row] += 1
+    t0 = time.time()
+    found = mock_prove(cs, k, fixed, advice, copies=copies, device=dev)
+    mock_s = time.time() - t0
+    tampered = mock_prove(cs, k, fixed, bad, copies=copies, device=dev)
+    del bad
+    log(f"[es256] mock_prove {mock_s:.1f}s: {found} on the witness; with advice {col} row "
+        f"{row} plus one: {tampered}, the JAX package's: {tampered == ref['ES256_JAX']['tampered']}")
+    if found or tampered != ref["ES256_JAX"]["tampered"]:
+        fail("the port's mock prover's ES256 findings differ from the JAX package's")
+
+    # keygen and the first timed proof: commit batches and launch shapes
+    batches = []
+    stop_batches = _record_window_sums(batches)
+    shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+    stop_shapes = _record_launch_shapes(shapes)
+    # device memory beside what the earlier phases left allocated
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.time()
+    pk = KG.keygen(srs, cs, fixed, copies, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.time() - t0
+    keygen_peak = torch.cuda.max_memory_allocated() - base
+    pk_bytes = torch.cuda.memory_allocated() - base
+    keygen_launches = counts()
+    n_keygen = len(batches)
+    keygen_sizes = [sc.shape[1] for _, sc in batches]
+    pk_spans = {k_: round(v, 3) for k_, v in pk.spans.items()}
+    log(f"[es256] keygen {keygen_s:.1f}s, peak {_gb(keygen_peak)} GB and the pk "
+        f"{_gb(pk_bytes)} GB beside {_gb(base)} GB allocated before; spans "
+        + json.dumps(pk_spans)
+        + f"; commit batches {keygen_sizes}; launches "
+        + json.dumps(keygen_launches))
+
+    def prove(adv, seed: bytes) -> bytes:
+        return PR.create_proof(pk, adv, [], rng=_det_rng(seed), device=dev)
+
+    stop_batches()
+    stop_shapes()
+    t0 = time.time()
+    warm = prove(advice, b"chip_smoke es256")
+    warm_s = time.time() - t0
+    before = counts()
+    timed = []
+    for i in range(3):
+        t0 = time.time()
+        _, _, adv_i, _ = circ.build(_es256_signed(2025, 100 + i))
+        build_s = time.time() - t0
+        first = i == 0
+        if first:
+            stop_batches = _record_window_sums(batches)
+            stop_shapes = _record_launch_shapes(shapes)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            at_start = counts()
+            pk_base = torch.cuda.memory_allocated() - base
+        t0 = time.time()
+        proof = prove(adv_i, b"chip_smoke es256 %d" % i)
+        prove_s = time.time() - t0
+        entry = dict(synthesis_s=build_s, prove_s=prove_s, bytes=len(proof))
+        if first:
+            stop_batches()
+            stop_shapes()
+            # the pk included: a proof's peak as a lone prover would see it
+            entry.update(peak_gb=_gb(torch.cuda.max_memory_allocated() - base),
+                         resident_gb=_gb(pk_base),
+                         spans={k_: round(v, 4) for k_, v in PR.LAST_SPANS.items()},
+                         launches={k_: v - at_start[k_] for k_, v in counts().items()},
+                         batches=[sc.shape[1] for _, sc in batches[n_keygen:]])
+        t0 = time.time()
+        ok = verify_proof(pk.vk, srs, proof, [])
+        entry["verify_s"] = time.time() - t0
+        entry["accepted"] = ok
+        timed.append((proof, entry))
+        log(f"[es256] proof {i} of a fresh signature: " + json.dumps(entry))
+        if not ok:
+            fail(f"verify_proof rejected the port's ES256 proof {i}")
+    launches = {k_: v - before[k_] + keygen_launches[k_] for k_, v in counts().items()}
+    proof = timed[0][0]
+    if verify_proof(pk.vk, srs, _flip(proof), []) or verify_proof(pk.vk, srs, proof[:-32], []):
+        fail("verify_proof accepted a flipped or truncated ES256 proof")
+    again = prove(advice, b"chip_smoke es256")
+    log(f"[es256] warm-up proof {warm_s:.1f}s; a flipped and a truncated proof rejected; "
+        f"the warm-up's rng again gives the same bytes: {again == warm}")
+    if again != warm:
+        fail("two ES256 proofs under the same rng differ")
+    if launches["serial_bucket_sums"]:
+        fail("the ES256 path ran the serial bucket sum")
+    del pk, warm, again
+    torch.cuda.empty_cache()
+
+    # launch shapes and commit batches phases 1-9 did not check
+    t0 = time.time()
+    new = phase_new_launch_shapes(dev, gen, "es256", seen_shapes, shapes, srs, seen_sizes,
+                                  batches)
+    del batches
+    torch.cuda.empty_cache()
+    log(f"[es256] {new} new launch shapes and commit batches equal their plain versions "
+        f"({time.time() - t0:.1f}s)")
+
+    # the K=6 two-column lookup circuit on the three commit routes
+    toy = _test_definitions("test_torch_prover.py", "K", "JAX_REF", "pair_inputs")
+    want = toy["JAX_REF"]["pair"]
+    cs6, fixed6, adv6, inst6, copies6 = toy["pair_inputs"](CS)
+    srs6 = get_srs(toy["K"], device=dev)
+    pk6 = KG.keygen(srs6, cs6, fixed6, copies6, device=dev)
+    if pk6.vk.transcript_repr != want["transcript_repr"]:
+        fail("the K=6 pair circuit's vk differs from the JAX package's")
+    same = {}
+    try:
+        for route, engine in (("v3", MF), ("v1", MV), ("serial", MS)):
+            KG.MSM_ENGINE = engine
+            got = PR.create_proof(pk6, adv6, inst6, rng=_det_rng(want["seed"]), device=dev)
+            same[route] = got.hex() == want["proof"]
+    finally:
+        KG.MSM_ENGINE = MF
+    log(f"[es256] the K=6 pair circuit's proof equals the JAX bytes on the routes: "
+        f"{json.dumps(same)}")
+    if not all(same.values()):
+        fail("the K=6 pair circuit's proof differs from the JAX package's on a route")
+    summary = dict(synthesis_s=synth_s, mock_s=mock_s, keygen_s=keygen_s,
+                   keygen_peak_gb=_gb(keygen_peak), pk_gb=_gb(pk_bytes),
+                   warmup_s=warm_s, prove_s=[e["prove_s"] for _, e in timed],
+                   verify_s=[e["verify_s"] for _, e in timed], peak_gb=timed[0][1]["peak_gb"],
+                   bytes=len(proof),
+                   batches=dict(keygen=keygen_sizes, proof=timed[0][1]["batches"]),
+                   keygen_spans=pk_spans, proof_spans=timed[0][1]["spans"],
+                   launches=launches)
+    return launches, summary
 
 
 def _precompile_seconds(srs) -> dict:
@@ -1491,19 +1756,9 @@ def main() -> int:
         fail("the GWC proof ran the serial bucket sum")
     #    launch shapes and commit batches the v3 proof did not have, against
     #    the plain versions
-    new_shapes = phase_new_launch_shapes(dev, gen, launch_shapes, gwc_shapes)
     main_sizes = set(sizes[keygen_batches:])
-    for i, (points, scalars) in enumerate(gwc_batches):
-        if i != n_gwc - 1 and scalars.shape[1] in main_sizes:
-            continue
-        crow, _, _ = _msm_stages(E.BN254_CURVE, points, scalars, MS._default_c(srs.n),
-                                 MF.lanes_for(srs.n))
-        errs = {k: v["err"] for k, v in crow.items()}
-        log(f"[gwc] v3 MSM kernels on the GWC proof's batch {i} (B={scalars.shape[1]}): "
-            f"max_abs_err={errs}")
-        if any(errs.values()):
-            fail(f"the v3 MSM kernels disagree with their plain versions on the GWC batch {i}")
-        new_shapes += 1
+    new_shapes = phase_new_launch_shapes(dev, gen, "gwc", launch_shapes, gwc_shapes, srs,
+                                         main_sizes, gwc_batches)
     del gwc_batches
     log(f"[gwc] {new_shapes} new launch shapes and batches equal their plain versions")
     #    SHPLONK over Keccak
@@ -1522,7 +1777,15 @@ def main() -> int:
         gwc_proof_s=gwc_s, gwc_bytes=len(gwc), shplonk_keccak_s=shk_s,
         precompiles=precompiles, evm=evm)))
 
-    # 10. counters and the kernels line
+    # 10. ES256 at k=17, with the launch counters from zero
+    t10 = time.time()
+    seen = {name: launch_shapes[name] + gwc_shapes[name] for name in launch_shapes}
+    es256_launches, es256 = phase_es256(dev, gen, srs, seen,
+                                        main_sizes | set(gwc_sizes) | {COMMIT_BATCH},
+                                        counts, zero_counts)
+    log(f"[es256] done ({time.time() - t10:.1f}s)")
+
+    # 11. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -1537,11 +1800,13 @@ def main() -> int:
         fail(f"a commit batch of {max(sizes + gwc_sizes)} exceeds the {COMMIT_BATCH} "
              "checked in phase 2")
     by_path = {"v3": launches, "serial": serial, "v1": v1,
-               "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches}
-    for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
-                 "msm_combine"):
-        if gwc_launches[name] == 0:
-            fail(f"kernel {name} was never launched on the GWC route")
+               "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches,
+               "es256": es256_launches}
+    for path in ("gwc", "es256"):
+        for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
+                     "msm_combine"):
+            if by_path[path][name] == 0:
+                fail(f"kernel {name} was never launched on the {path} path")
     for name in KERNEL_META:
         path, counter = KERNEL_PATH.get(name, ("v3", name))
         if by_path[path][counter] == 0:
@@ -1566,6 +1831,7 @@ def main() -> int:
         })
     log(f"[total] {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"es256": es256}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,7 +47,8 @@ def test_port_has_the_slice_modules():
                 "plonk/prover.py", "plonk/verifier.py", "plonk/transcript.py",
                 "utils/keccak.py", "fields/pairing.py", "circuits/ecdsa_circuit.py",
                 "api.py", "convert.py", "evm/codegen.py", "evm/yul_asm.py",
-                "evm/machine.py", "evm/yul_interp.py", "plonk/pk_cache.py"):
+                "evm/machine.py", "evm/yul_interp.py", "plonk/pk_cache.py",
+                "plonk/mock.py", "circuits/sha256.py", "circuits/es256_circuit.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",
@@ -88,6 +89,18 @@ def test_keygen_and_create_proof_default_to_the_card():
         keygen(srs, cs, [[0] * 64], [])
     with pytest.raises(RuntimeError, match="CUDA"):
         create_proof(object(), [[0]], [])
+
+
+def test_mock_prove_defaults_to_the_card():
+    from webauthn_halo2_tpu_torch.plonk import cs as CS
+    from webauthn_halo2_tpu_torch.plonk.mock import mock_prove
+
+    _no_card()
+    cs = CS.ConstraintSystem(num_fixed=1, num_advice=1)
+    cs.gate("g", CS.fixed(0) * CS.advice(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mock_prove(cs, 4, [[1] * 16], [[0] * 8])
+    assert mock_prove(cs, 4, [[1] * 16], [[0] * 8], device="cpu") == []
 
 
 def test_api_defaults_to_the_card():

@@ -1,7 +1,8 @@
 """The port's prover against the JAX package's, on the toy circuits (CPU).
 
 The K=6 toy circuit of tests/test_plonk_e2e.py (a vertical gate, a range
-lookup and copy constraints) and its public-input circuit, copied here.
+lookup and copy constraints) and its public-input circuit, copied here,
+and a K=6 circuit with the two-column pair lookup of the SHA-256 chip.
 The JAX package takes minutes on this CPU to key and prove them, so its
 outputs under the deterministic `rng` below are stored here: the vk
 transcript digest and the proof bytes. The port must reproduce both byte
@@ -215,6 +216,165 @@ JAX_REF = {
             ),
         ),
     ),
+    "pair": dict(
+        seed=b"pair",
+        transcript_repr=0x103eeab849bfbf113d684399beb3feaeb11642ed4a5a41115330c40b02822ecb,
+        proof=(
+        "ad9016b214af282b9be88762d44322273ff1291716ef5424e42942acfd1a230f"
+        "467880cefd432388b99b0256cb7ad5122d70bfabacf80a111272d509e4d85a92"
+        "c65793df5ddcc539e5eb01ab8784f4008ae0c9ce6eba55c1ab4da1a1a35d9e02"
+        "d9432363e91bc6647bde99aa3a7fe58d953ad89a1de471458250dadb57c15e1d"
+        "1b52caf377d559fc5df1df30d95faed9e9e77ba2d6aa93073bdc3a72c81350a0"
+        "30c9f3005b1e65ca2391f6b21307abc6615f39ab35446b6252fd1766a3fe640c"
+        "375e87d0fea063047f0dee3eba9aabe1892dc4a9ff979a0532857e93afed899f"
+        "4476d5118c979b7ffc286325230e50ff0bb762b249d3f8f7f944639f5fe78f07"
+        "60d5e66b34696daaa68ff362ddda2bec8c168525e92b069ce57967b7493afd0b"
+        "33c21a67d4ed64913c902436ab7e02056830fbfd71a059688fd053b3583cdc0b"
+        "4afbfbba6ae9ad44d7bce86167524c125bb1d1a3ceb23b2c790e72d2f10b91a4"
+        "2039074c93b80c6f35c6c328b3e9ea96ad0e76c56f33c5bb013916e3ec64479e"
+        "6f97d69d3584d241b2f558f8da7fe31663a32b52177713675edbd217873f6817"
+        "a3e2437ba38ef1d689149db2696840090ac0e313cdd2034c5fd61250fc72790a"
+        "79f7248e3612b9b90cc53eb0f6a5792708c69ed48dacc6f3d3ed1269fa65bd22"
+        "d64a9bccf94b43186a651d4cb0eb8fdc9f1b9b4ef93e19bfbba38ef794038c16"
+        "1642523c9c6644d40b07b8122870b4e9d5653f8e543a5c16281a24556307812d"
+        "090b7af2051f530e1565ac35f849d26b7f6d1fe2991092d41f8b46d0e0243a13"
+        "7893dbc9d5f150ca76c239aef7183bb0a3f320f0e6dfa23101c81f60b891120f"
+        "02675555e14cd3f1a0d06d293c31a1b2b77d0659dab67e6dcdc893a37409c20b"
+        "4a4c2ac15f6e3507626c1d5c7b5f297cf9560f83ba6f2fcd7b297990c3a13321"
+        "497bf8567ae8957df1477810eefa6886b70afde670d9a11567329fe970406c2d"
+        "7eaf05cca5d3711cf99eeaa568f389b3d0ca60bd01812bec01b9f5532f3a291d"
+        "32a30407024a710857abebd3d129a7668621869cb08595a1868316a3176ad91a"
+        "cbd746708e384e76fe37ac510e988e8713b639630512acb5ee45d920dea2870e"
+        "c41f3937ad804c23474b7b3c77d367d13639b868fae874c18fa99a2f1248b222"
+        "350485bc06527f40837284ef1a9832d00cd90d739367ef221bba2d9d33f39f06"
+        "ce5cfcb362c408e01c258997fee7f1accb28699b386ee64fb25214ed71ccdc01"
+        "7181cc79248cbd07e9f597003feeac164820f049d2228dc35c91822d8f95471e"
+        "1a3fa4815918bbad939f5538a192b4e8a6421bcce494bc7f7a1bac8247ca3d26"
+        "7c7ef8dbc438252b6ce2171636e9c14de8a6128f6180201c6007fc2de1121a0a"
+        "3b7e661872a8d2577761e5cba7a7a58591d639eaa031d9c44aa85c5e000b9f09"
+        "4b1175beae54276b455ab3ff76060bcfe0f6ca69defd04a7ce8b31a6c1580f07"
+        "7cfcda2cfc7741fcab14f01af32a7b7d12c4a2e5d1d4cec6bed60294659fb827"
+        "cb5447517eb17f4e393882306ebddb38081de4baed0adc1b1befc838a261560f"
+        "e6f6011f783ef569ec43ec0bfa0b7a07bb4285c4fd749978b4d4a9db2c5aad28"
+        "e27fdd554e951ef3e6c0695693c0dd4905d7b68990bd0e28d81a7301e48c848c"
+    ),
+        keccak=dict(
+            gwc=(
+            "0f231afdac4229e42454ef161729f13f272243d46287e89b2b28af14b21690ad"
+            "2ee5e92f30b3d0aad2848ced4f79e86a6fae75413c598b8a11551ccd57b9b516"
+            "125ad8e409d57212110af8acabbf702d12d57acb56029bb9882343fdce807846"
+            "211fb5f90b1f2c884fe47f7b6c6e1344835d57a1483c918e29cc36b3569bd8b1"
+            "029e5da3a1a14dabc155ba6ecec9e08a00f48487ab01ebe539c5dc5ddf9357c6"
+            "12665b2997e0952e878430cc83ec7cabee6e7c5d7aff2f554945c885d89058bc"
+            "2763991b19486668738e7395da0bcbfc1aabd2c0842571f06844aa5fdbae0e71"
+            "0d0191fb40810ece741d24b09c35062a22f2f76afe62d2c51a5db9c53d80bf8f"
+            "0647fec1049e78d92053d8329af4b655bd0ec213cd738ec9a5554fd0c97a8578"
+            "27ff46d31a6305331e01558f81f466231fda760ae4ab8ee99ee207325a779b7e"
+            "239bb776472bcb95e6ceadd5d068060846b3bb7e065f1f5f9e601bcb70ed6876"
+            "00ff1f00c5446c0ff039a8cb9837b878e5d8def8285594f8952f55bdb7dbfa02"
+            "192eee442711a8f2081759525bf4780e668ec6b3569cfb059765f058d515a7bc"
+            "0f7a3eeaeddcd17499a216fc74d47e931563a8fe10982fdcaae4edd10b4a3608"
+            "07f0a63f275955dc41253ce6883d177bab4d56d2c71b15661eab65d253b5e53b"
+            "0777e1bce5d7d51f7445ceb3a24fb7e0df0df4b9fde9845ec07f1f6d6da9a3dd"
+            "0bfd3a49b76779e59c062be92585168cec2bdadd62f38fa6aa6d69346be6d560"
+            "0879e7c80ffac9ccf238f3890315c30a9f5deaafd93be0f00fbf0d0d2374b5a4"
+            "2d54da22057f6c0441d857d33e6740a021fa83bfbdce37b9ddd3c4ce0a8e99c9"
+            "0538d0736d5835e9244f9d85d72115466aec721a5c53a7bdddaa45e15ae308bf"
+            "08d1efd244cbea0bd7b87d501bf03be0d3ce8fdc276f5ba6d38d8fd82535a36b"
+            "096fc351464687d7ac97e89cf6acf84418eeca0d8a72ac5f600f46a7e5dd1640"
+            "0e5bf52e3974c513fb19a2fefe9b4516b96aaa6387f8102039506483af51a8ed"
+            "1b32d37b160d35a6cf3c894745bfbc53fe24a9f3e1e9839dd8f786a1d095f9b0"
+            "1d8758266ec9ce92983e23d1a0a6a060d779c726b41261891ac7f6b547eee0dc"
+            "221e224ff5750e45dac2e2b760d4153f0870d1a3b72936d9dad00df448977b7c"
+            "0861ca6a2ac21a394e7441b934804ea8abb289e1af3a47c5daab279ecdce2279"
+            "0d59c6f845accf2c8074cf5c25ea0f8904ec8bb3e753549217bba0a84b3bb8d7"
+            "071fbaa801ebbaf8707fc9669e40238368c3a7a43ced5342204f63ee2770aacb"
+            "0f7ceb816eb09bc499d9de75739c5a098709c48d66207627280494727d307d82"
+            "08d79433ee380262287796adf2cb46b127ba0f6bc1110d7fd44b72a2175de5bc"
+            "1c0a1ef6e1216b8c00d235b6d41237afe8e04de18a17aa8598402d11f0104cf0"
+            "27de410aa138c38e989a7ee83a649b60e06a3abcf2335166064f4e58e0ccb2a0"
+            "175f6b26dee6be2c7bfe083e190fbcb8b17a3cc3a1c90705806fd43984794b3d"
+            "17eb01dfa49aa0568bd990a0d066ad42eb4bfd34472ad0c28632994befd54fc6"
+            "0345b16a81c8701a56fff4536572caff5d5f04a2e4c9e7f30705a374170a6b01"
+            "2a2f9a96c2476ae69cc936bbbb4362103bb6ae64420588532da4c21365064700"
+            "187688af460515952009f4d2adcd9b45b4dfae65307c60f15b7af6f4d8a98eae"
+            "1d1fb426d5bc360a4c5daf34d0304fd7239ee746e18c0f674ab8a45c81c388e5"
+            "032611df0dd952029c8ff5df7084eebc99649d2d7d3b697eef22c58879e7941a"
+            "2a1d97d14942c280bed3283a18fc39a7b84bef200fb85db643ea468343a6053d"
+            "04185a9160a8c826739b5b451b21a41d488f2275408150680c2cc9103ace870d"
+            "0ea72fef73f14b6bc7272206bcbad1186d18e7fa2444e3aaa2bc54d9110b0aad"
+            "23bf9799f5154ae53219475ff510ee1408ee04dd43589c139701a619c102ba98"
+            "244a7a6d3f5e66c3650a1c20d1cced87871e127613e6842f0d3cda4cea6c9d23"
+            "1ab2f3092718d1bf464b288e150951299a99a3e0480fac3e5e5f117d4e882ba0"
+            "07a7f6057d8f1f38d164b488f61c9f0f7d25482859c5922919f098144fc0be35"
+            "1d56bcde3232e65e3444664b6faaa1a6e4d39b7e3666424fd8f597c706246f33"
+            "01b47da86cc659029ef6ad2384365eda2e56b5f631077cdd532e218198420271"
+            "195c86a7fa4c57152c1594fed614a0123ebb4969a699babcbafbc10c39c19ba5"
+            "158860733f61608a88c0c1f366a13a28e8daa5ad6ed4ebcf4721804d44ea1136"
+            "0623d3a40f18894d948737ddad21187561befba00ff770d5f2d1b9dd621368cb"
+            "0ea181664d9e35589437166d853c0c8478cca7762bc9173e7fa6715421f4fea8"
+            "2613742b5463bdfd38edaea79c1db3ba8bb185bd118e1417e754e1ebf40550f9"
+            "2569884205cf4f8e8f9a6c9ed0695b2bef545ade987a82196be3e0c6638a198a"
+            "2e3724208818339d10c06185218da86ed83a73af73d4c4d8919b5942b1730cb2"
+            "0ddb29db965367b7f052f8ea987253387b62a6fcb32d563b1fa4791b0aceafd9"
+            "05c8c37f39bb42af85c1a28f3dffebe12c9693439ec92f4ad34141bc3b9912e7"
+            "053c708cea56625b658f2956f6210193733d241178615db964698751228bc674"
+            ),
+            shplonk=(
+            "0f231afdac4229e42454ef161729f13f272243d46287e89b2b28af14b21690ad"
+            "2ee5e92f30b3d0aad2848ced4f79e86a6fae75413c598b8a11551ccd57b9b516"
+            "125ad8e409d57212110af8acabbf702d12d57acb56029bb9882343fdce807846"
+            "211fb5f90b1f2c884fe47f7b6c6e1344835d57a1483c918e29cc36b3569bd8b1"
+            "029e5da3a1a14dabc155ba6ecec9e08a00f48487ab01ebe539c5dc5ddf9357c6"
+            "12665b2997e0952e878430cc83ec7cabee6e7c5d7aff2f554945c885d89058bc"
+            "2763991b19486668738e7395da0bcbfc1aabd2c0842571f06844aa5fdbae0e71"
+            "0d0191fb40810ece741d24b09c35062a22f2f76afe62d2c51a5db9c53d80bf8f"
+            "0647fec1049e78d92053d8329af4b655bd0ec213cd738ec9a5554fd0c97a8578"
+            "27ff46d31a6305331e01558f81f466231fda760ae4ab8ee99ee207325a779b7e"
+            "239bb776472bcb95e6ceadd5d068060846b3bb7e065f1f5f9e601bcb70ed6876"
+            "00ff1f00c5446c0ff039a8cb9837b878e5d8def8285594f8952f55bdb7dbfa02"
+            "192eee442711a8f2081759525bf4780e668ec6b3569cfb059765f058d515a7bc"
+            "0f7a3eeaeddcd17499a216fc74d47e931563a8fe10982fdcaae4edd10b4a3608"
+            "07f0a63f275955dc41253ce6883d177bab4d56d2c71b15661eab65d253b5e53b"
+            "0777e1bce5d7d51f7445ceb3a24fb7e0df0df4b9fde9845ec07f1f6d6da9a3dd"
+            "0bfd3a49b76779e59c062be92585168cec2bdadd62f38fa6aa6d69346be6d560"
+            "0879e7c80ffac9ccf238f3890315c30a9f5deaafd93be0f00fbf0d0d2374b5a4"
+            "2d54da22057f6c0441d857d33e6740a021fa83bfbdce37b9ddd3c4ce0a8e99c9"
+            "0538d0736d5835e9244f9d85d72115466aec721a5c53a7bdddaa45e15ae308bf"
+            "08d1efd244cbea0bd7b87d501bf03be0d3ce8fdc276f5ba6d38d8fd82535a36b"
+            "096fc351464687d7ac97e89cf6acf84418eeca0d8a72ac5f600f46a7e5dd1640"
+            "0e5bf52e3974c513fb19a2fefe9b4516b96aaa6387f8102039506483af51a8ed"
+            "1b32d37b160d35a6cf3c894745bfbc53fe24a9f3e1e9839dd8f786a1d095f9b0"
+            "1d8758266ec9ce92983e23d1a0a6a060d779c726b41261891ac7f6b547eee0dc"
+            "221e224ff5750e45dac2e2b760d4153f0870d1a3b72936d9dad00df448977b7c"
+            "0861ca6a2ac21a394e7441b934804ea8abb289e1af3a47c5daab279ecdce2279"
+            "0d59c6f845accf2c8074cf5c25ea0f8904ec8bb3e753549217bba0a84b3bb8d7"
+            "071fbaa801ebbaf8707fc9669e40238368c3a7a43ced5342204f63ee2770aacb"
+            "0f7ceb816eb09bc499d9de75739c5a098709c48d66207627280494727d307d82"
+            "08d79433ee380262287796adf2cb46b127ba0f6bc1110d7fd44b72a2175de5bc"
+            "1c0a1ef6e1216b8c00d235b6d41237afe8e04de18a17aa8598402d11f0104cf0"
+            "27de410aa138c38e989a7ee83a649b60e06a3abcf2335166064f4e58e0ccb2a0"
+            "175f6b26dee6be2c7bfe083e190fbcb8b17a3cc3a1c90705806fd43984794b3d"
+            "17eb01dfa49aa0568bd990a0d066ad42eb4bfd34472ad0c28632994befd54fc6"
+            "0345b16a81c8701a56fff4536572caff5d5f04a2e4c9e7f30705a374170a6b01"
+            "2a2f9a96c2476ae69cc936bbbb4362103bb6ae64420588532da4c21365064700"
+            "187688af460515952009f4d2adcd9b45b4dfae65307c60f15b7af6f4d8a98eae"
+            "1d1fb426d5bc360a4c5daf34d0304fd7239ee746e18c0f674ab8a45c81c388e5"
+            "032611df0dd952029c8ff5df7084eebc99649d2d7d3b697eef22c58879e7941a"
+            "2a1d97d14942c280bed3283a18fc39a7b84bef200fb85db643ea468343a6053d"
+            "04185a9160a8c826739b5b451b21a41d488f2275408150680c2cc9103ace870d"
+            "0ea72fef73f14b6bc7272206bcbad1186d18e7fa2444e3aaa2bc54d9110b0aad"
+            "23bf9799f5154ae53219475ff510ee1408ee04dd43589c139701a619c102ba98"
+            "244a7a6d3f5e66c3650a1c20d1cced87871e127613e6842f0d3cda4cea6c9d23"
+            "1ab2f3092718d1bf464b288e150951299a99a3e0480fac3e5e5f117d4e882ba0"
+            "07a7f6057d8f1f38d164b488f61c9f0f7d25482859c5922919f098144fc0be35"
+            "2dbe9036564dccf56c93a2332fec833bbc54847cfd84fa128e6d3e8da18ffc1b"
+            "171043a68638c6a4dbcd9ba59b5430cd162d0a3761edabc9fb908ba01a7db8b6"
+            "23b33395645d89e6c6caec41da25730c0e2a439f21fd7c0382318487cb1bbb54"
+            "27fea663218d5da421668889784453a9578197143f92045d95873217bcd43163"
+            ),
+        ),
+    ),
 }
 
 
@@ -275,7 +435,40 @@ def pub_inputs(cs_mod):
     return cs, [qcol], [adv], [[42, 99]], []
 
 
-CIRCUITS = {"toy": toy_inputs, "pub": pub_inputs}
+def pair_inputs(cs_mod):
+    """The shape of circuits/builder.py's pair tables (the SHA-256 chip's
+    XOR and AND lookups) at K=6: a two-column lookup of (key, value)
+    advice columns into (key, value) fixed columns, a 16-row table
+    (key = x + 4y, value = x ^ y for 2-bit x, y) zero-padded, so that the
+    padding rows compress to the table's row (0, 0), and copies from the
+    gate column into both lookup columns. Three permutation columns make
+    two carry-chained permutation chunks."""
+    cs = cs_mod.ConstraintSystem(num_fixed=3, num_advice=3)
+    cs.gate("vgate", cs_mod.fixed(0) * (cs_mod.advice(0, 0) + cs_mod.advice(0, 1)
+                                        * cs_mod.advice(0, 2) - cs_mod.advice(0, 3)))
+    cs.lookup("pair", [cs_mod.advice(1), cs_mod.advice(2)], [cs_mod.fixed(1), cs_mod.fixed(2)])
+    for i in range(3):
+        cs.enable_permutation(cs_mod.ADVICE, i)
+    n = 1 << K
+    usable = cs.usable_rows(n)
+    # two gates key = x + 4 * y: (x, y) = (3, 2) and (1, 3), then the values
+    adv0 = [3, 4, 2, 11, 1, 4, 3, 13, 3 ^ 2, 1 ^ 3] + [0] * (usable - 10)
+    keys = [11, 13, 5, 11, 15] + [0] * (usable - 5)
+    vals = [3 ^ 2, 1 ^ 3, 1 ^ 1, 3 ^ 2, 3 ^ 3] + [0] * (usable - 5)
+    q = [1, 0, 0, 0, 1, 0, 0, 0] + [0] * (n - 8)
+    tkeys = list(range(16)) + [0] * (n - 16)
+    tvals = [(i & 3) ^ (i >> 2) for i in range(16)] + [0] * (n - 16)
+    copies = [
+        ((cs_mod.ADVICE, 0, 3), (cs_mod.ADVICE, 1, 0)),
+        ((cs_mod.ADVICE, 0, 7), (cs_mod.ADVICE, 1, 1)),
+        ((cs_mod.ADVICE, 0, 8), (cs_mod.ADVICE, 2, 0)),
+        ((cs_mod.ADVICE, 0, 9), (cs_mod.ADVICE, 2, 1)),
+        ((cs_mod.ADVICE, 1, 0), (cs_mod.ADVICE, 1, 3)),
+    ]
+    return cs, [q, tkeys, tvals], [adv0, keys, vals], [], copies
+
+
+CIRCUITS = {"toy": toy_inputs, "pub": pub_inputs, "pair": pair_inputs}
 
 
 @pytest.fixture(scope="module")
@@ -320,7 +513,7 @@ def test_port_verifier_accepts_jax_proof_and_rejects_tampering(port_proof, srs):
         assert not verify_proof(pk.vk, srs, jax_proof, [[43, 99]])
 
 
-@pytest.mark.parametrize("port_proof", ["toy"], indirect=True)
+@pytest.mark.parametrize("port_proof", ["toy", "pair"], indirect=True)
 def test_serial_msm_route_gives_the_same_proof(port_proof, monkeypatch):
     """Committing through the serial Pippenger instead of the v3 pipeline
     gives the same commitments, so the same proof bytes."""
@@ -337,13 +530,17 @@ def test_serial_msm_route_gives_the_same_proof(port_proof, monkeypatch):
     assert proof.hex() == JAX_REF[name]["proof"]
 
 
-@pytest.mark.parametrize("port_proof", ["pub"], indirect=True)
+# the MSMs of one proof, each folded by the v1 route's device Horner
+V1_MSMS = {"pub": 5, "pair": 14}
+
+
+@pytest.mark.parametrize("port_proof", sorted(V1_MSMS), indirect=True)
 def test_v1_msm_route_gives_the_same_proof(port_proof, monkeypatch):
     """Committing through the v1 driver (one MSM at a time, the plain
     boundary scan of fused adds, the device Horner) gives the same
-    commitments, so the same proof bytes. The public-input circuit keeps
-    it cheap: each of its five MSMs folds about 250 doublings on the
-    device."""
+    commitments, so the same proof bytes. Each MSM folds about 250
+    doublings on the device, so only the public-input circuit (five MSMs)
+    and the two-column lookup circuit run it."""
     from webauthn_halo2_tpu_torch.ops import msm_v1 as V
     from webauthn_halo2_tpu_torch.plonk import keygen as KG
 
@@ -354,7 +551,7 @@ def test_v1_msm_route_gives_the_same_proof(port_proof, monkeypatch):
     monkeypatch.setattr(V, "horner", lambda *a, h=V.horner: calls.append(1) or h(*a))
     proof = create_proof(pk, advice, instances, rng=_det_rng(JAX_REF[name]["seed"]),
                          device="cpu")
-    assert len(calls) == 5
+    assert len(calls) == V1_MSMS[name]
     assert proof.hex() == JAX_REF[name]["proof"]
 
 

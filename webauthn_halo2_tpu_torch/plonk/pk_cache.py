@@ -57,6 +57,22 @@ def pk_digest(k: int, cs: CS.ConstraintSystem, fixed_cols: list,
     return h.hexdigest()
 
 
+def synthesis_digest(cs: CS.ConstraintSystem, fixed_cols: list,
+                     advice_cols: list, copies: list) -> str:
+    """A digest of one synthesis: the constraint system, the fixed and
+    advice assignments (each column's length and values) and the copy
+    constraints. It reads only what both packages' circuit objects carry,
+    so a build of one circuit from one witness has the same digest here and
+    in the JAX package."""
+    h = hashlib.blake2b(digest_size=32)
+    h.update(_cs_repr(cs))
+    for col in list(fixed_cols) + list(advice_cols):
+        h.update(len(col).to_bytes(4, "little"))
+        h.update(ints_to_words([int(v) % BN254_FR for v in col]).tobytes())
+    h.update(repr(copies).encode())
+    return h.hexdigest()
+
+
 def _comms_bytes(comms: list) -> np.ndarray:
     """Affine (x, y) int pairs -> (m, 2, 32) little-endian bytes."""
     out = np.zeros((len(comms), 2, 32), dtype=np.uint8)
