@@ -86,11 +86,31 @@ Phases, one or more lines each:
      against the plain versions; the K=6 two-column lookup circuit proved
      on the v3, v1 and serial routes, each proof equal to the JAX bytes;
      a JSON line of its numbers before the card's line;
- 11. every kernel of a path launched during that path's run (each run with
+ 11. device SRS generation: generate_srs(17) on the card (its host scalars,
+     window table, fixed-base multiplies and conversion to affine timed
+     apart) equal to the committed k=17 SRS tensor for tensor; get_srs(18),
+     a degree without a committed file, generated into a new directory under
+     build/ in the port's format, reloaded equal, 64 seeded points of each
+     table equal to the host multiples, and the pairing check
+     e([tau]G1, G2) = e(G1, [tau]G2); its new montmul launch shapes (Fq)
+     against the plain version;
+ 12. the proving server (webauthn_halo2_tpu_torch/server/app.py) on
+     127.0.0.1 in a thread, in a new directory under build/: /setup, a
+     WebAuthn assertion from the port's client through /prove, /verify,
+     /prove_evm, /verify_evm and /generate_evm_verifier (Yul equal to
+     results/P256Verifier.yul), then the bundler routes: the port's k=17 GWC
+     proof unlocks a UserOperation in the port's EVM (counter 0 -> 1,
+     account deployed), again (1 -> 2), results/proof_gwc_k17.hex (2 -> 3),
+     a zeroed proof does not; one proving key for the whole phase; then
+     api.generate_proofs_batch (4 SHPLONK proofs verified, two byte-equal
+     to the same requests proved alone, 2 GWC proofs verified); a
+     `serving` JSON line of its and phase 11's numbers;
+ 13. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
-     the serial bucket sum did not run on the v3 route, and rows 1-6 ran on
-     the GWC and ES256 paths; a `kernels` JSON
+     the serial bucket sum did not run on the v3 route, rows 1-6 ran on
+     the GWC, ES256, server and batch paths, and the montmul on the SRS
+     path; a `kernels` JSON
      line with launches, times, bounds, the plain versions' times, for the
      MSM kernels their times and bounds over the proof's batches (the
      combine's also per batch), and for rows 1-3 the proof's launch shapes.
@@ -1054,10 +1074,10 @@ def _first_difference(a: str, b: str) -> str:
 
 
 def phase_keys_on_disk(api, params, signed, proof, dev):
-    """Phase 9.1: download_keys into a new directory under build/ (keygen,
-    then the key file), the in-memory keys dropped, the pk loaded from
-    that file, and a proof from it equal to the main path's. Returns the
-    directory and the pk and vk manifests' paths."""
+    """Phase 9.1: download_keys into a new directory under build/ (the key
+    file of the key in memory since phase 4), the in-memory keys dropped,
+    the pk loaded from that file, and a proof from it equal to the main
+    path's. Returns the directory and the pk and vk manifests' paths."""
     import glob
     import tempfile
 
@@ -1106,7 +1126,8 @@ def phase_keys_on_disk(api, params, signed, proof, dev):
     again = api.generate_proof(*signed, proving_key_path=pk_path, device=dev,
                                rng=_det_rng(b"chip_smoke"))
     prove_s = time.time() - t0
-    log(f"[keys] download_keys {download_s:.1f}s (circuit, keygen and save), key file "
+    log(f"[keys] download_keys {download_s:.1f}s (circuit, the key kept in memory since "
+        f"phase 4, and save), key file "
         f"{os.path.basename(files[0])} {size} bytes saved in {seconds['save_pk'][0]:.2f}s; "
         f"proving_key from the file {load_s:.2f}s (circuit, digest and load; the load "
         f"{seconds['load_pk'][0]:.2f}s); proof from the loaded pk in {prove_s:.1f}s: "
@@ -1117,13 +1138,14 @@ def phase_keys_on_disk(api, params, signed, proof, dev):
 
 
 def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
-                            seen_sizes=(), batches=()) -> int:
+                            seen_sizes=(), batches=(), spec=None) -> int:
     """Each montmul and NTT launch shape in `new` that `seen` lacks, against
     its plain version on random words at that shape, exact; then the v3 MSM
     kernels on each commit batch of `batches` (bases, scalars) whose size
     is not in `seen_sizes`, and on the last (random-scalar) batch, against
-    theirs on that batch, each timed beside its least work. Returns how
-    many shapes and batches were checked."""
+    theirs on that batch, each timed beside its least work. The montmul
+    runs in `spec` (default Fr). Returns how many shapes and batches were
+    checked."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
     from webauthn_halo2_tpu_torch.ops import ec as E
     from webauthn_halo2_tpu_torch.ops import modops as M
@@ -1131,14 +1153,15 @@ def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
     from webauthn_halo2_tpu_torch.ops import msm_fused as MF
     from webauthn_halo2_tpu_torch.ops import ntt as N
 
+    spec = spec or FR_SPEC
     checked = 0
     for name, keys in new.items():
         for key in sorted(set(keys) - set(seen[name])):
             if name == "montmul":
                 n, a_bc, b_bc = key
-                a = _rand_words(FR_SPEC, (1 if a_bc else n,), gen, dev)
-                b = _rand_words(FR_SPEC, (1 if b_bc else n,), gen, dev)
-                got, want = M.montmul_cuda(FR_SPEC, a, b), M.montmul_plain(FR_SPEC, a, b)
+                a = _rand_words(spec, (1 if a_bc else n,), gen, dev)
+                b = _rand_words(spec, (1 if b_bc else n,), gen, dev)
+                got, want = M.montmul_cuda(spec, a, b), M.montmul_plain(spec, a, b)
             else:
                 B, n, s = key[:3]
                 x = _rand_words(FR_SPEC, (B, n), gen, dev)
@@ -1495,6 +1518,295 @@ def phase_verifiers(api, key_dir: str, vk_path: str, dev, own: dict) -> dict:
 # The largest commit batch of keygen and the proof (9 fixed and 9 sigma
 # columns in keygen, 8 advice columns in the proof): phase 2 checks the MSM
 # kernels at 20 windows x this many rows, and the main path must stay within.
+def phase_srs(dev, gen, srs, seen_shapes: dict, counts, zero_counts) -> tuple:
+    """Phase 11: device SRS generation. generate_srs(17) on the card, its
+    host scalars, window table, fixed-base multiplies and conversion to
+    affine timed apart, every tensor equal to the committed k=17 SRS as
+    get_srs loaded it; then get_srs(18) into a new directory under build/,
+    a degree without a committed file: generated, written in the port's
+    format, reloaded equal with the in-memory entry dropped, 64 seeded
+    indices of g_mono and g_lag equal to the host multiples of their host
+    scalars, and e([tau]G1, G2) = e(G1, [tau]G2). The launch counts run
+    from zero over both generations; each montmul launch shape the earlier
+    phases did not check, against its plain version in Fq. Returns (the
+    launch counts, the numbers for the summary line)."""
+    import tempfile
+
+    from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC
+    from webauthn_halo2_tpu_torch.fields.pairing import pairing_check
+    from webauthn_halo2_tpu_torch.fields.ref_curve import BN254_G1_CURVE as G
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.plonk import srs as S
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+    stop_shapes = _record_launch_shapes(shapes)
+    zero_counts()
+    t0 = time.time()
+    g17 = S.generate_srs(srs.k, device=dev)
+    torch.cuda.synchronize()
+    gen17_s = time.time() - t0
+    equal17 = (same(g17.g_mono, srs.g_mono) and same(g17.g_lag, srs.g_lag)
+               and (g17.g2, g17.s_g2) == (srs.g2, srs.s_g2))
+    spans17 = dict(g17.spans)
+    log(f"[srs] generate_srs({srs.k}) on the card in {gen17_s:.2f}s "
+        + json.dumps({k: round(v, 3) for k, v in spans17.items()})
+        + f"; every tensor equal to artifacts/srs_bn254_k{srs.k}_646576.npz: {equal17}")
+    if not equal17:
+        fail(f"generate_srs({srs.k}) differs from the committed SRS")
+    del g17
+    k = srs.k + 1
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_srs_", dir=os.path.join(ROOT, "build"))
+    jax_path, port_path = S.srs_paths(k, b"dev", cache_dir)
+    t0 = time.time()
+    g18 = S.get_srs(k, cache_dir=cache_dir, device=dev)
+    torch.cuda.synchronize()
+    gen18_s = time.time() - t0
+    launches = counts()
+    stop_shapes()
+    spans18 = dict(g18.spans)
+    if not os.path.exists(port_path) or os.path.exists(jax_path) or not spans18:
+        fail(f"get_srs({k}) did not generate and write {port_path} (and only it)")
+    size = os.path.getsize(port_path)
+    S._SRS_MEM_CACHE.pop((k, b"dev", str(dev)))
+    t0 = time.time()
+    again = S.get_srs(k, cache_dir=cache_dir, device=dev)
+    torch.cuda.synchronize()
+    reload_s = time.time() - t0
+    reloaded = (again is not g18 and not again.spans and same(again.g_mono, g18.g_mono)
+                and same(again.g_lag, g18.g_lag) and (again.g2, again.s_g2) == (g18.g2, g18.s_g2))
+    t0 = time.time()
+    powers, lag = S.srs_scalars(k)
+    idx = sorted(random.Random(18).sample(range(1 << k), 64))
+    host_ok = True
+    for which, scalars in (("g_mono", powers), ("g_lag", lag)):
+        pts = getattr(again, which)
+        got = E.to_affine_ints(E.BN254_CURVE, E.JPoint(*(c[:, idx] for c in pts)))
+        host_ok &= got == [G.mul(scalars[i], G.g) for i in idx]
+    tau_g1 = E.to_affine_ints(E.BN254_CURVE, E.JPoint(*(c[:, 1:2] for c in again.g_mono)))[0]
+    pairing_ok = pairing_check([(tau_g1, again.g2), (G.neg(G.g), again.s_g2)])
+    host_s = time.time() - t0
+    log(f"[srs] get_srs({k}) generated in {gen18_s:.2f}s "
+        + json.dumps({k_: round(v, 3) for k_, v in spans18.items()})
+        + f", wrote {os.path.basename(port_path)} ({size} bytes); reloaded in {reload_s:.2f}s, "
+        f"equal: {reloaded}; 64 indices of g_mono and g_lag equal the host multiples: "
+        f"{host_ok}; e([tau]G1, G2) = e(G1, [tau]G2): {pairing_ok} ({host_s:.1f}s); "
+        f"launches {json.dumps(launches)}")
+    if not (reloaded and host_ok and pairing_ok):
+        fail(f"the generated k={k} SRS did not reload equal, or disagrees with the host")
+    del g18, again
+    S._SRS_MEM_CACHE.pop((k, b"dev", str(dev)))
+    shutil.rmtree(cache_dir)
+    if launches["serial_bucket_sums"]:
+        fail("SRS generation ran the serial bucket sum")
+    t0 = time.time()
+    new = phase_new_launch_shapes(dev, gen, "srs", seen_shapes, shapes, spec=FQ_SPEC)
+    log(f"[srs] {new} new montmul launch shapes (Fq) equal their plain versions "
+        f"({time.time() - t0:.1f}s)")
+    return launches, dict(generate_k17_s=gen17_s, k17_spans=spans17, generate_k18_s=gen18_s,
+                          k18_spans=spans18, k18_file_bytes=size, k18_reload_s=reload_s,
+                          host_checks_s=host_s, new_launch_shapes=new)
+
+
+def _signed_request(key_seed: int, msg_seed: int) -> dict:
+    """A ProveRequestBody-style dict (LE byte lists) of a fresh ECDSA-P256
+    signature: the key from key_seed, the message and nonce from msg_seed."""
+    from webauthn_halo2_tpu_torch.fields.ref_curve import (P256_CURVE, ecdsa_keygen,
+                                                           ecdsa_sign)
+
+    sk, pub = ecdsa_keygen(rng=_Seeded(key_seed))
+    m = _Seeded(msg_seed).randbelow(P256_CURVE.n)
+    r, s = ecdsa_sign(m, sk, k=1 + _Seeded(msg_seed + 1).randbelow(P256_CURVE.n - 1))
+    return {name: list(int(v).to_bytes(32, "little"))
+            for name, v in zip(("r", "s", "pubkey_x", "pubkey_y", "msghash"), (r, s, *pub, m))}
+
+
+def phase_server(api, dev, counts, zero_counts) -> tuple:
+    """Phase 12: the port's proving server and its on-chain leg, then
+    batched proving. In a new directory under build/ (so ./keys/ lands
+    there), the server's ThreadingHTTPServer on 127.0.0.1 in a thread, the
+    in-memory keys and the bundler's chain dropped first: /setup (k=17),
+    a WebAuthn assertion from the port's client with a seeded key, /prove
+    and /verify (a flipped proof rejected), /prove_evm and /verify_evm,
+    /generate_evm_verifier with that GWC proof (its Yul equal to
+    results/P256Verifier.yul), /chain/sender twice, /chain/submit_userop
+    with the port's proof (0 -> 1, account deployed), again (1 -> 2), with
+    results/proof_gwc_k17.hex (2 -> 3) and a zeroed proof (not executed),
+    /chain/receipt (200 and 404); one proving key built for all of it.
+    Any other answer fails the run. Then generate_proofs_batch: 4 SHPLONK
+    requests, each verified, two proved again alone with the same rng and
+    byte-equal, and 2 GWC requests that verify_evm accepts. Returns (the
+    server's launch counts, the batch's, the numbers for the summary
+    line)."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from webauthn_halo2_tpu_torch.client import webauthn as wa
+    from webauthn_halo2_tpu_torch.fields.ref_curve import P256_CURVE
+    from webauthn_halo2_tpu_torch.plonk import pk_cache as PC
+    from webauthn_halo2_tpu_torch.server import app, bundler
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_server_", dir=os.path.join(ROOT, "build"))
+    # every key built or loaded in this phase, through whichever module
+    built = {"keygen": 0, "load_pk": 0}
+    originals = [(api, "keygen"), (PC, "keygen"), (PC, "load_pk")]
+    saved = {(m, n): getattr(m, n) for m, n in originals}
+
+    def counting(module, name):
+        orig = saved[(module, name)]
+
+        def run(*a, **kw):
+            built["load_pk" if name == "load_pk" else "keygen"] += 1
+            return orig(*a, **kw)
+
+        return run
+
+    for m, n in originals:
+        setattr(m, n, counting(m, n))
+    api._PK_CACHE.clear()
+    bundler._WORLD = None
+    cwd = os.getcwd()
+    os.chdir(work)
+    srv = app.ThreadingHTTPServer(("127.0.0.1", 0), app.Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True, name="server")
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    route_s: dict = {}
+
+    def post(route: str, body: dict, want_code: int = 200) -> str:
+        req = urllib.request.Request(base + route, data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"},
+                                     method="POST")
+        t0 = time.time()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                code, text = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            code, text = e.code, e.read().decode()
+        route_s.setdefault(route, []).append(time.time() - t0)
+        if code != want_code:
+            fail(f"{route} answered {code} {text[:300]!r}, not {want_code}")
+        return text
+
+    try:
+        zero_counts()
+        if post("/setup", {"degree": 17}) != "keys generated":
+            fail("/setup did not answer 'keys generated'")
+        files = sorted(os.listdir(os.path.join(work, "keys")))
+        if not {"proving_key.pk", "verifying_key.vk"} <= set(files) or not any(
+                f.startswith("pk_k17_") and f.endswith(".torch.npz") for f in files):
+            fail(f"/setup left {files} in ./keys, not the key file and both manifests")
+        sk = 1 + _Seeded(31337).randbelow(P256_CURVE.n - 1)
+        cred = wa.Credential("webauthn-halo2-tpu.local", bytes(range(32)), sk,
+                             P256_CURVE.mul(sk, P256_CURVE.g))
+        assertion = wa.authenticate(cred, b"chip_smoke server",
+                                    k=1 + _Seeded(4242).randbelow(P256_CURVE.n - 1))
+        if not wa.verify_assertion_host(assertion, cred):
+            fail("the host rejected the client's own assertion")
+        body = wa.prove_request_body(assertion, cred)
+        vk = {"verifying_key_path": "./keys/verifying_key.vk"}
+        proof_hex = post("/prove", body)
+        verdicts = [post("/verify", {**vk, "proof": proof_hex}),
+                    post("/verify", {**vk, "proof": _flip(bytes.fromhex(proof_hex)).hex()})]
+        gwc_hex = post("/prove_evm", body)
+        verdicts.append(post("/verify_evm", {**vk, "proof": gwc_hex}))
+        log(f"[server] /setup, /prove ({len(proof_hex) // 2} bytes), /verify, /prove_evm "
+            f"({len(gwc_hex) // 2} bytes), /verify_evm: {verdicts}")
+        if verdicts != ["verified", "rejected", "verified"]:
+            fail(f"/verify and /verify_evm answered {verdicts}")
+        msg = post("/generate_evm_verifier", {
+            **vk, "sol_code_path": "verifier.sol", "deploy_code_path": "verifier.code",
+            "yul_code_path": "verifier.yul", "valid_proof_hex": gwc_hex})
+        found = re.fullmatch(r"generated evm verifier \(dry-run gas: (\d+)\)", msg)
+        with open(os.path.join(ROOT, "results", "P256Verifier.yul")) as f:
+            want_yul = f.read()
+        with open("verifier.yul") as f:
+            yul = f.read()
+        log(f"[server] /generate_evm_verifier: {msg!r}; its Yul equals "
+            f"results/P256Verifier.yul: {yul == want_yul}")
+        if not found or yul != want_yul:
+            fail("/generate_evm_verifier gave no dry-run gas, or Yul other than "
+                 "results/P256Verifier.yul: " + _first_difference(yul, want_yul))
+        dry_run_gas = int(found.group(1))
+        pub = {"public_key": (cred.pk[0].to_bytes(32, "big")
+                              + cred.pk[1].to_bytes(32, "big")).hex()}
+        senders = [json.loads(post("/chain/sender", pub))["sender"] for _ in range(2)]
+        if senders[0] != senders[1]:
+            fail(f"/chain/sender gave {senders}")
+        with open(os.path.join(ROOT, "results", "proof_gwc_k17.hex")) as f:
+            jax_gwc = f.read().strip()
+        receipts = [json.loads(post("/chain/submit_userop", {**pub, "proof": p}))
+                    for p in (gwc_hex, gwc_hex, jax_gwc, "00" * (len(gwc_hex) // 2))]
+        got = [(r["success"], r["accountDeployed"], r["counterBefore"], r["counterAfter"])
+               for r in receipts]
+        want = [(True, True, 0, 1), (True, False, 1, 2), (True, False, 2, 3),
+                (False, False, 3, 3)]
+        gas = [r["gasUsed"] for r in receipts]
+        log(f"[server] /chain/submit_userop: (success, deployed, counter before, after) {got}; "
+            f"gasUsed {gas}; sender {senders[0]}")
+        if got != want or any(r["sender"] != senders[0] for r in receipts):
+            fail(f"/chain/submit_userop gave {got}, not {want}")
+        known = json.loads(post("/chain/receipt", {"userOpHash": receipts[0]["userOpHash"]}))
+        post("/chain/receipt", {"userOpHash": "0x" + "00" * 32}, want_code=404)
+        if known != receipts[0]:
+            fail("/chain/receipt gave another receipt than /chain/submit_userop")
+        server_launches = counts()
+        if built != {"keygen": 1, "load_pk": 0}:
+            fail(f"the server phase built or loaded {built}, not one proving key")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(30)
+        os.chdir(cwd)
+        for (m, n), orig in saved.items():
+            setattr(m, n, orig)
+    shutil.rmtree(work)
+    log(f"[server] one proving key for every route and the chain; launches "
+        f"{json.dumps(server_launches)}; seconds a route "
+        + json.dumps({k: [round(v, 3) for v in vs] for k, vs in route_s.items()}))
+
+    # batched proving over the same key
+    params = api.CircuitParams()
+    reqs = [_signed_request(7000 + i, 7100 + i) for i in range(4)]
+    zero_counts()
+    t0 = time.time()
+    proofs = api.generate_proofs_batch(reqs, params=params, device=dev,
+                                       rngs=[_det_rng(b"batch %d" % i) for i in range(4)])
+    torch.cuda.synchronize()
+    batch_s = time.time() - t0
+    batch_launches = counts()
+    accepted = [api.verify(p, params=params, device=dev) for p in proofs]
+    single_s, alone = [], []
+    for i in (0, 3):
+        t0 = time.time()
+        alone.append(api.generate_proof(*(bytes(reqs[i][k]) for k in (
+            "r", "s", "pubkey_x", "pubkey_y", "msghash")), params=params, device=dev,
+            rng=_det_rng(b"batch %d" % i)) == proofs[i])
+        single_s.append(time.time() - t0)
+    t0 = time.time()
+    gwc_reqs = [_signed_request(7200 + i, 7300 + i) for i in range(2)]
+    gwc = api.generate_proofs_batch(gwc_reqs, params=params, scheme="gwc", device=dev)
+    gwc_batch_s = time.time() - t0
+    gwc_ok = [api.verify_evm(p, params=params, device=dev) for p in gwc]
+    log(f"[batch] 4 SHPLONK proofs in {batch_s:.2f}s (two workers), each accepted: {accepted}; "
+        f"requests 0 and 3 proved alone with the same rng in {[round(v, 2) for v in single_s]}s, "
+        f"byte-equal: {alone}; 2 GWC proofs in {gwc_batch_s:.2f}s, verify_evm: {gwc_ok}; "
+        f"launches {json.dumps(batch_launches)}")
+    if not all(accepted) or not all(alone) or not all(gwc_ok):
+        fail("a batch proof was rejected or differs from the same request proved alone")
+    summary = dict(route_s=route_s, dry_run_gas=dry_run_gas, receipts_gas=gas,
+                   batch=dict(shplonk_4_s=batch_s, alone_s=single_s,
+                              alone_mean_x4_s=4 * sum(single_s) / len(single_s),
+                              gwc_2_s=gwc_batch_s))
+    return server_launches, batch_launches, summary
+
+
 COMMIT_BATCH = 9
 
 KERNEL_META = {
@@ -1785,7 +2097,18 @@ def main() -> int:
                                         counts, zero_counts)
     log(f"[es256] done ({time.time() - t10:.1f}s)")
 
-    # 11. counters and the kernels line
+    # 11. SRS generation on the card, with the launch counters from zero
+    t11 = time.time()
+    srs_launches, srs_summary = phase_srs(dev, gen, srs, seen, counts, zero_counts)
+    log(f"[srs] done ({time.time() - t11:.1f}s)")
+
+    # 12. the proving server, the on-chain leg and batched proving
+    t12 = time.time()
+    server_launches, batch_launches, serving = phase_server(api, dev, counts, zero_counts)
+    log(f"[server] done ({time.time() - t12:.1f}s)")
+    serving["srs"] = srs_summary
+
+    # 13. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -1801,8 +2124,11 @@ def main() -> int:
              "checked in phase 2")
     by_path = {"v3": launches, "serial": serial, "v1": v1,
                "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches,
-               "es256": es256_launches}
-    for path in ("gwc", "es256"):
+               "es256": es256_launches, "srs": srs_launches, "server": server_launches,
+               "batch": batch_launches}
+    if srs_launches["montmul"] == 0:
+        fail("kernel montmul was never launched on the srs path")
+    for path in ("gwc", "es256", "server", "batch"):
         for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
                      "msm_combine"):
             if by_path[path][name] == 0:
@@ -1832,6 +2158,7 @@ def main() -> int:
     log(f"[total] {time.time() - t_all:.1f}s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"es256": es256}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,9 @@ def test_port_has_the_slice_modules():
                 "utils/keccak.py", "fields/pairing.py", "circuits/ecdsa_circuit.py",
                 "api.py", "convert.py", "evm/codegen.py", "evm/yul_asm.py",
                 "evm/machine.py", "evm/yul_interp.py", "plonk/pk_cache.py",
-                "plonk/mock.py", "circuits/sha256.py", "circuits/es256_circuit.py"):
+                "plonk/mock.py", "circuits/sha256.py", "circuits/es256_circuit.py",
+                "client/webauthn.py", "evm/yulc.py", "chain/abi.py", "chain/contracts.py",
+                "server/bundler.py", "server/app.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",
@@ -130,6 +132,22 @@ def test_onchain_api_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         api.download_keys(17, str(tmp_path / "pk.json"), str(tmp_path / "vk.json"))
     assert not list(tmp_path.iterdir())
+
+
+def test_serving_entry_points_default_to_the_card():
+    from webauthn_halo2_tpu_torch import api
+    from webauthn_halo2_tpu_torch.plonk.srs import generate_srs
+    from webauthn_halo2_tpu_torch.server.bundler import World
+
+    _no_card()
+    z = list(bytes(32))
+    req = dict(r=z, s=z, pubkey_x=z, pubkey_y=z, msghash=z)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.generate_proofs_batch([req])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_srs(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        World()
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -1,24 +1,29 @@
 """Library API: the port's `ecdsa_p256.rs` function surface on the card.
 
 The counterpart of the JAX package's api.py (ecdsa_p256.rs:256-469):
-download_keys, generate_proof[_evm], verify[_evm] and generate_verifier,
-with the same raw 32-byte little-endian field inputs. Keys are
-deterministic functions of (circuit params, SRS seed). `proving_key`
-keeps them in memory, once per process and device; with a `cache_dir`
-(download_keys, and every entry point given the path of an existing key
-manifest) it also writes them to that directory once and loads them from
-there afterwards (plonk/pk_cache.py).
+download_keys, generate_proof[_evm], verify[_evm], generate_verifier and
+generate_proofs_batch, with the same raw 32-byte little-endian field
+inputs. Keys are deterministic functions of (circuit params, SRS seed).
+`proving_key` keeps one key per circuit, SRS seed and device in memory,
+built once per process under a lock, whichever thread asks first; when a
+key is not yet in memory and a `cache_dir` is given (download_keys, and
+every entry point given the path of an existing key manifest), it is
+loaded from the key file there, which is written first if it is missing
+(plonk/pk_cache.py).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
+import threading
 import time
 
 from .circuits.ecdsa_circuit import CircuitParams, ECDSACircuit, ECDSAInputs
 from .device import resolve
 from .plonk.keygen import ProvingKey, keygen
+from .plonk import pk_cache
 from .plonk.pk_cache import keygen_cached
 from .plonk.prover import create_proof
 from .plonk.srs import get_srs
@@ -28,35 +33,44 @@ from .plonk.verifier import verify_proof
 KEY_KIND = "webauthn-halo2-tpu-torch-key"
 
 _PK_CACHE: dict = {}
+_PK_LOCK = threading.Lock()
 
 
 def proving_key(params: CircuitParams | None = None, srs_seed: bytes = b"dev",
                 device=None, cache_dir: str | None = None) -> ProvingKey:
     """keygen for the ECDSA circuit at `params` (default CircuitParams,
-    k=17), built once per process and device; with `cache_dir`, loaded
-    from the key file there, which is written first if it is missing."""
+    k=17), once per process, SRS seed and device, whatever `cache_dir`:
+    with `cache_dir`, a key not yet in memory is loaded from the key file
+    there, which is written first if it is missing."""
     params = params or CircuitParams()
     dev = resolve(device)
-    key = (params.to_json(), srs_seed, str(dev), cache_dir)
-    if key not in _PK_CACHE:
-        srs = get_srs(params.degree, srs_seed, device=dev)
-        circuit = ECDSACircuit(params)
-        cs, fixed, _advice, copies = circuit.build(ECDSAInputs.dummy())
-        if cache_dir is None:
-            _PK_CACHE[key] = keygen(srs, cs, fixed, copies, device=dev)
-        else:
-            _PK_CACHE[key] = keygen_cached(srs, cs, fixed, copies, cache_dir,
-                                           device=dev)
-    return _PK_CACHE[key]
+    key = (params.to_json(), srs_seed, str(dev))
+    with _PK_LOCK:
+        if key not in _PK_CACHE:
+            srs = get_srs(params.degree, srs_seed, device=dev)
+            circuit = ECDSACircuit(params)
+            cs, fixed, _advice, copies = circuit.build(ECDSAInputs.dummy())
+            if cache_dir is None:
+                _PK_CACHE[key] = keygen(srs, cs, fixed, copies, device=dev)
+            else:
+                _PK_CACHE[key] = keygen_cached(srs, cs, fixed, copies, cache_dir,
+                                               device=dev)
+        return _PK_CACHE[key]
 
 
 def download_keys(degree: int, pk_path: str, vk_path: str,
                   params: CircuitParams | None = None, device=None) -> None:
-    """keygen into the directory of `pk_path`, then the key manifests
+    """keygen into the directory of `pk_path` (the key file is saved there
+    also when the key was already in memory), then the key manifests
     (download_keys, ecdsa_p256.rs:256-272)."""
     params = dataclasses.replace(params or CircuitParams(), degree=degree)
-    pk = proving_key(params, device=device,
-                     cache_dir=os.path.dirname(os.path.abspath(pk_path)))
+    key_dir = os.path.dirname(os.path.abspath(pk_path))
+    pk = proving_key(params, device=device, cache_dir=key_dir)
+    cs, fixed, _advice, copies = ECDSACircuit(params).build(ECDSAInputs.dummy())
+    path = pk_cache.pk_file(key_dir, pk.srs, cs, fixed, copies)
+    if not os.path.exists(path):
+        os.makedirs(key_dir, exist_ok=True)
+        pk_cache.save_pk(path, pk)
     manifest = {
         "kind": KEY_KIND,
         "params": json.loads(params.to_json()),
@@ -96,16 +110,20 @@ def _prove(r, s, pubkey_x, pubkey_y, msghash, proving_key_path, params,
            device, rng, **opening) -> bytes:
     params = params or _load_params(proving_key_path)
     pk = _keys(params, proving_key_path, device)
+    circuit = ECDSACircuit(params)
+    advice, instances = _witness(circuit, r, s, pubkey_x, pubkey_y, msghash)
+    return create_proof(pk, advice, instances, rng=rng, device=pk.device, **opening)
+
+
+def _witness(circuit: ECDSACircuit, r, s, pubkey_x, pubkey_y, msghash) -> tuple:
+    """(advice, instances) of the circuit for one signature's LE bytes."""
     inputs = ECDSAInputs(
         r=le_bytes_to_int(r),
         s=le_bytes_to_int(s),
         msghash=le_bytes_to_int(msghash),
         pk=(le_bytes_to_int(pubkey_x), le_bytes_to_int(pubkey_y)),
     )
-    circuit = ECDSACircuit(params)
-    advice = circuit.witness(inputs)
-    return create_proof(pk, advice, circuit.public_inputs(inputs), rng=rng,
-                        device=pk.device, **opening)
+    return circuit.witness(inputs), circuit.public_inputs(inputs)
 
 
 def generate_proof(r: bytes, s: bytes, pubkey_x: bytes, pubkey_y: bytes,
@@ -190,3 +208,65 @@ def generate_verifier(
     with open(deploy_code_path, "w") as f:
         json.dump({"code": list(deploy)}, f)
     return gas_used
+
+
+def _opening(scheme: str) -> dict:
+    """create_proof's options for a batch scheme: "shplonk" is SHPLONK over
+    Blake2b (generate_proof), "gwc" GWC over Keccak (generate_proof_evm)."""
+    if scheme == "shplonk":
+        return {}
+    if scheme == "gwc":
+        return dict(scheme="gwc", transcript=KeccakWrite())
+    raise ValueError(f"unknown batch scheme {scheme!r}")
+
+
+def prove_batch(pk: ProvingKey, witnesses: list, scheme: str = "shplonk",
+                rngs: list | None = None) -> list[bytes]:
+    """N independent proofs over one pk. `witnesses` are callables, each
+    returning (advice, instances); one worker runs them in order, and two
+    create_proof workers prove what it hands on, each proof with its own
+    `rngs[i]` (default os.urandom). Both provers launch on the card's
+    default stream, which orders their kernels; they share only what they
+    read (the pk and its stacked tensors) and the launch counters and
+    `prover.LAST_SPANS`, which are then the batch's and not one proof's."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rngs = rngs or [os.urandom] * len(witnesses)
+    if len(rngs) != len(witnesses):
+        raise ValueError(f"{len(rngs)} rngs for {len(witnesses)} witnesses")
+
+    def prove(args, rng):
+        advice, instances = args
+        return create_proof(pk, advice, instances, rng=rng, device=pk.device,
+                            **_opening(scheme))
+
+    _opening(scheme)  # an unknown scheme raises before any work starts
+    with ThreadPoolExecutor(max_workers=1) as wpool, \
+            ThreadPoolExecutor(max_workers=2) as ppool:
+        wfuts = [wpool.submit(w) for w in witnesses]
+        pfuts = [ppool.submit(prove, f.result(), rng) for f, rng in zip(wfuts, rngs)]
+        return [f.result() for f in pfuts]
+
+
+def generate_proofs_batch(
+    requests: list[dict],
+    proving_key_path: str = "",
+    params: CircuitParams | None = None,
+    scheme: str = "shplonk",
+    device=None,
+    rngs: list | None = None,
+) -> list[bytes]:
+    """Batched multi-signature proving: N independent signatures, N proofs
+    over one proving key. Each request is {r, s, pubkey_x, pubkey_y,
+    msghash} as LE byte lists (ProveRequestBody). Witness generation runs
+    in one worker while two create_proof workers prove (`prove_batch`), so
+    one proof's host work can run while the other's kernels occupy the
+    card. scheme="shplonk": SHPLONK over Blake2b; "gwc": GWC over Keccak."""
+    params = params or _load_params(proving_key_path)
+    pk = _keys(params, proving_key_path, device)
+    circuit = ECDSACircuit(params)
+    witnesses = [
+        functools.partial(_witness, circuit, req["r"], req["s"], req["pubkey_x"],
+                          req["pubkey_y"], req["msghash"])
+        for req in requests]
+    return prove_batch(pk, witnesses, scheme, rngs)

@@ -6,7 +6,9 @@ sources at once in parallel, into `build/kernels/` at the repository root.
 A library's file name carries a digest of its source, of every shared
 header (csrc/*.cuh) and of the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as it is. Nothing is built or
-loaded when this module is imported: the first launch builds.
+loaded when this module is imported: the first launch builds, under a
+lock, so that threads of one process (a server's requests, the workers
+of a proof batch) compile each source once and load only finished files.
 
 Every C entry returns `cudaGetLastError()`; `check` raises on anything but 0.
 """
@@ -17,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -59,6 +62,7 @@ class _Libraries:
 
 
 _STATE = _Libraries()
+_BUILD_LOCK = threading.Lock()
 BUILD_SECONDS: dict[str, float] = {}
 
 
@@ -85,6 +89,11 @@ def build_all() -> float:
     """Compile every missing library (one nvcc per source, all started
     together) and load them all. Returns the seconds spent; `BUILD_SECONDS`
     keeps each library's time from the start to its nvcc's exit."""
+    with _BUILD_LOCK:
+        return _build_all_locked()
+
+
+def _build_all_locked() -> float:
     if len(_STATE.libs) == len(SOURCES):
         return 0.0
     t0 = time.time()

@@ -149,13 +149,19 @@ def load_pk(path: str, srs: SRS, cs: CS.ConstraintSystem, device=None) -> Provin
                       dev_t("x_ext"), dev_t("omega_mont"))
 
 
+def pk_file(cache_dir: str, srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list,
+            copies: list) -> str:
+    """The path of the circuit's key file in `cache_dir`."""
+    digest = pk_digest(srs.k, cs, fixed_cols, copies, srs.tau_seed)
+    return os.path.join(cache_dir, f"pk_k{srs.k}_{digest}.torch.npz")
+
+
 def keygen_cached(srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list,
                   copies: list, cache_dir: str, device=None) -> ProvingKey:
     """keygen with a write-once file in `cache_dir` (the download_keys
     flow: generate once, then always load)."""
     os.makedirs(cache_dir, exist_ok=True)
-    digest = pk_digest(srs.k, cs, fixed_cols, copies, srs.tau_seed)
-    path = os.path.join(cache_dir, f"pk_k{srs.k}_{digest}.torch.npz")
+    path = pk_file(cache_dir, srs, cs, fixed_cols, copies)
     if os.path.exists(path):
         return load_pk(path, srs, cs, device=device)
     pk = keygen(srs, cs, fixed_cols, copies, device=device)

@@ -14,6 +14,7 @@ the same `rng` gives the same proof bytes.
 from __future__ import annotations
 
 import os
+import threading
 import time as _time
 
 import torch
@@ -80,8 +81,17 @@ def _stack_or_empty(cols: list, n: int, device) -> torch.Tensor:
     return torch.zeros((W, 0, n), dtype=torch.int32, device=device)
 
 
+_FUSED_LOCK = threading.Lock()
+
+
 def _fused_for(pk) -> FusedPhases:
-    """Phase functions plus the stacked pk tensors (built once per pk)."""
+    """Phase functions plus the stacked pk tensors (built once per pk, also
+    when two threads prove with it at once; proofs only read them)."""
+    with _FUSED_LOCK:
+        return _fused_for_locked(pk)
+
+
+def _fused_for_locked(pk) -> FusedPhases:
     fp = getattr(pk, "_fused", None)
     if fp is None:
         fp = FusedPhases(pk)
