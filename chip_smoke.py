@@ -3,10 +3,16 @@
 
     python3 chip_smoke.py
 
+Runs under WH2_TRACE (set unless it is set already): the phases read the
+prover's and keygen's spans. The H100's ceilings and the kernels' work
+counts come from webauthn_halo2_tpu_torch/utils/roofline.py.
+
 Phases, one or more lines each:
   1. build the CUDA kernels (webauthn_halo2_tpu_torch/csrc, nvcc, sm_90a),
      one nvcc per source, all started together, and print each kernel's
      registers, stack frame and spill bytes from the compiler's report;
+     beside them, in a thread, the host libraries of the verifier
+     (csrc/host, g++);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes of the main path, with exact equality of the words: montmul
      (random words at 2^17 and 2^19, edge words in Fr and Fq, a broadcast
@@ -40,7 +46,9 @@ Phases, one or more lines each:
      commitment through the v3 pipeline, whose batches are recorded, and
      the shape of every montmul and NTT kernel launch;
   6. api.verify accepts it and rejects a tampered copy; the port's verifier
-     accepts results/proof_shplonk_k17.hex (made by the JAX package); then
+     accepts results/proof_shplonk_k17.hex (made by the JAX package); the
+     proof and a flipped copy give the same verdicts through the native
+     host verifier and the Python one, each timed; then
      the v3 MSM kernels on the proof's own six commit batches: each timed
      with its least work on that data (digit 0 excluded), per batch and
      summed over the proof (`proof_ms`, `proof_bound_ms`), the interior
@@ -64,13 +72,15 @@ Phases, one or more lines each:
      launch counters from zero, its spans, launches and commit batches,
      each montmul and NTT launch shape and each commit batch the phase-5
      proof did not have against the plain versions; verify_evm accepts it,
-     rejects a tampered copy and accepts results/proof_gwc_k17.hex; a
+     rejects a tampered copy and accepts results/proof_gwc_k17.hex, with
+     the same verdicts on the native and the Python host paths; a
      SHPLONK proof over Keccak that verify_evm accepts; generate_verifier
      for both schemes, each Yul text equal to results/P256Verifier.yul and
      results/P256Verifier_shplonk.yul, deployed in the port's EVM, where the
      JAX package's proofs run at exactly the gas of results/evm_gas.json,
      the port's own within 0.5% of it, and tampered and truncated proofs
-     revert, each call timed;
+     revert, each call timed; the GWC verifier's verdicts and gas the same
+     with the EVM's pairing and Keccak in Python;
  10. ES256 (tests/test_torch_mock.py, tests/test_torch_prover.py hold the
      JAX package's outputs it compares with): the circuit at k=17 (SHA-256
      of authenticator data and client-data hash in the circuit, then
@@ -81,7 +91,12 @@ Phases, one or more lines each:
      proof, then three proofs of fresh signatures from one seeded key, each
      timed and accepted by verify_proof, the first with its spans, launches,
      commit batches and peak memory; a flipped and a truncated proof
-     rejected; the warm-up's rng again gives the same bytes; every montmul
+     rejected, with the same verdicts on the Python host path; the
+     warm-up's rng again gives the same bytes; one rng proved at
+     WH2_QUOTIENT_CHUNKS 1 and 4 gives the same bytes (each proof's peak
+     memory and time, and each span's memory at its start and running peak
+     at its end), the montmul on the windows' operands against its
+     plain version; every montmul
      and NTT launch shape and commit batch the earlier phases did not check,
      against the plain versions; the K=6 two-column lookup circuit proved
      on the v3, v1 and serial routes, each proof equal to the JAX bytes;
@@ -101,10 +116,14 @@ Phases, one or more lines each:
      results/P256Verifier.yul), then the bundler routes: the port's k=17 GWC
      proof unlocks a UserOperation in the port's EVM (counter 0 -> 1,
      account deployed), again (1 -> 2), results/proof_gwc_k17.hex (2 -> 3),
-     a zeroed proof does not; one proving key for the whole phase; then
-     api.generate_proofs_batch (4 SHPLONK proofs verified, two byte-equal
-     to the same requests proved alone, 2 GWC proofs verified); a
-     `serving` JSON line of its and phase 11's numbers;
+     a zeroed proof does not; one proving key for the whole phase;
+     /verify and /verify_evm with the native and the Python host paths'
+     verdicts equal; then, untraced, api.generate_proofs_batch (a stream a
+     prover; 4 SHPLONK proofs verified, two byte-equal to the same
+     requests proved alone, the batch's time over 4 proofs alone, one
+     traced proof beside them, 2 GWC proofs verified, the 4 SHPLONK
+     proofs again with one prover worker, byte-equal); a `serving` JSON
+     line of its and phase 11's numbers;
  13. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
@@ -113,10 +132,14 @@ Phases, one or more lines each:
      path; a `kernels` JSON
      line with launches, times, bounds, the plain versions' times, for the
      MSM kernels their times and bounds over the proof's batches (the
-     combine's also per batch), and for rows 1-3 the proof's launch shapes.
+     combine's also per batch), and for rows 1-3 the proof's launch shapes;
+     then the `es256` and `serving` lines, and a line with the card's name
+     and power limit, the verification times on both host paths, the
+     untraced batch and ES256's windowed quotient.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -125,32 +148,15 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import torch
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes per second,
-# and 32-bit integer multiply-adds per second. The integer rate is not in
-# the data sheet's table: an SM issues 64 INT32 lanes per clock, half its
-# 128 FP32 lanes, so it is half the 67 TFLOP/s float32 rate counted in
-# instructions: 67e12 / 2 (FMA = 2 flops) / 2 = 16.75e12 IMAD/s.
-HBM_BYTES_PER_S = 3.35e12
-IMAD_PER_S = 16.75e12
-# dense int8 tensor-core operations per second (a multiply-add is two)
-INT8_OPS_PER_S = 1979e12
-# thread instructions issued per second: 132 SMs, four schedulers of 32
-# lanes each, at the 1,980 MHz maximum SM clock
-ISSUE_PER_S = 132 * 128 * 1.98e9
-# one 8-word CIOS Montgomery multiply: 64 a*b and 64 m*p word products,
-# each a 32x32 -> 64-bit product (two IMADs: low and high half)
-IMAD_PER_MONTMUL = 256
-# a Montgomery square: 28 cross products once, doubled, 8 squares, then the
-# 64 reduction products: 100 word products
-IMAD_PER_MONTSQR = 200
-# a mixed add (Z2 = 1): 8 multiplies and 3 squares; a Jacobian add: 12 and 4
-IMAD_PER_MADD = 8 * IMAD_PER_MONTMUL + 3 * IMAD_PER_MONTSQR
-IMAD_PER_JADD = 12 * IMAD_PER_MONTMUL + 4 * IMAD_PER_MONTSQR
-ELEM_BYTES = 32
+try:  # the ceilings and work counts: webauthn_halo2_tpu_torch/utils/roofline.py
+    from webauthn_halo2_tpu_torch.utils import roofline as RL
+except ImportError:  # main() fails with the reason
+    RL = None
 
 
 def log(msg: str) -> None:
@@ -313,7 +319,7 @@ def phase_montmul(dev, gen) -> dict:
                     warm_sm_mhz=warm[1], warm_power_w=warm[2],
                     cold_sm_mhz=cold_t[1], cold_power_w=cold_t[2]),
                 plain_ms=_events_ms(lambda: M.montmul_plain(FR_SPEC, a, b), 3),
-                bytes=3 * ELEM_BYTES * n, ops=IMAD_PER_MONTMUL * n)
+                **RL.montmul_work(n))
 
 
 def phase_kernels(dev, gen):
@@ -362,7 +368,7 @@ def phase_kernels(dev, gen):
         err=max(errs), shape=shape,
         ms=_events_ms(lambda: N.stage_a(FR_SPEC, x, tw, log_t, cq), 10),
         plain_ms=_events_ms(lambda: N.stage_a_plain(FR_SPEC, x, tw, log_t), 1),
-        **_stage_a_work(B, n, log_t))
+        **RL.stage_a_work(B, n, log_t))
     s = log_t
     got = N.stage_b(FR_SPEC, x, tw, s)
     want = N.stage_b_plain(FR_SPEC, x, tw, s)
@@ -375,22 +381,8 @@ def phase_kernels(dev, gen):
         err=err_b, shape=f"(8, {B}, 2^{ek}), h=2^{s}",
         ms=_events_ms(lambda: N.stage_b(FR_SPEC, x, tw, s), 20),
         plain_ms=_events_ms(lambda: N.stage_b_plain(FR_SPEC, x, tw, s), 2),
-        **_stage_b_work(B, n, s))
+        **RL.stage_b_work(B, n, s))
     return rows
-
-
-# A butterfly of stage s whose twiddle is w^0 = 1 (j = 0, one in 2^s of
-# them) needs no multiply: the least work of the NTT stages counts the
-# others only.
-def _stage_a_work(B: int, n: int, log_t: int) -> dict:
-    mults = sum(B * (n // 2) - B * (n >> (s + 1)) for s in range(log_t))
-    return dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * ((1 << log_t) - 1),
-                ops=IMAD_PER_MONTMUL * mults)
-
-
-def _stage_b_work(B: int, n: int, s: int) -> dict:
-    return dict(bytes=2 * ELEM_BYTES * B * n + ELEM_BYTES * (1 << s),
-                ops=IMAD_PER_MONTMUL * (B * (n // 2) - B * (n >> (s + 1))))
 
 
 def _pt_err(a, b) -> int:
@@ -406,7 +398,7 @@ def _least_work(sdig, bnd, seg, buckets, n: int, lanes: int) -> dict:
 
     R = sdig.shape[0]
     nb = buckets.x.shape[-1]
-    pt_bytes = 3 * ELEM_BYTES
+    pt_bytes = 3 * RL.ELEM_BYTES
     # Interior: a madd where a step continues its run, digit != 0 only;
     # every digit read, the index and point of each nonzero step.
     nz = sdig != 0
@@ -432,32 +424,15 @@ def _least_work(sdig, bnd, seg, buckets, n: int, lanes: int) -> dict:
     comb_adds = int(((filled.sum(dim=-1) - 1).clamp(min=0) + (top - 1).clamp(min=0)).sum().item())
     return {
         "msm_interior": dict(
-            bytes=2 * ELEM_BYTES * n + 4 * R * n + (4 + 2 * ELEM_BYTES) * nz_steps
+            bytes=2 * RL.ELEM_BYTES * n + 4 * R * n + (4 + 2 * RL.ELEM_BYTES) * nz_steps
             + pt_bytes * R * (nb + 2 * lanes) + 8 * R * lanes,
-            ops=IMAD_PER_MADD * madds, madds=madds),
+            ops=RL.IMAD_PER_MADD * madds, madds=madds),
         "msm_scan": dict(
             bytes=pt_bytes * int(live.sum().item()) + 4 * R * m2 + pt_bytes * tails,
-            ops=IMAD_PER_JADD * scan_adds, adds=scan_adds,
+            ops=RL.IMAD_PER_JADD * scan_adds, adds=scan_adds,
             segments=int(opens.sum().item())),
-        "msm_combine": dict(bytes=pt_bytes * R * (nb + 1), ops=IMAD_PER_JADD * comb_adds),
+        "msm_combine": dict(bytes=pt_bytes * R * (nb + 1), ops=RL.IMAD_PER_JADD * comb_adds),
     }
-
-
-def _bound_terms(row: dict) -> dict:
-    """ms of each term of a row's bound: its bytes over the memory rate, its
-    operations over their rate, and, where the row counts them, its 32-bit
-    operations around the tensor-core products over the SMs' issue rate."""
-    terms = dict(bytes=row["bytes"] / HBM_BYTES_PER_S * 1e3,
-                 operations=row["ops"] / row.get("rate", IMAD_PER_S) * 1e3)
-    if "glue_ops" in row:
-        terms["glue"] = row["glue_ops"] / ISSUE_PER_S * 1e3
-    return terms
-
-
-def _bound_ms(row: dict) -> tuple:
-    terms = _bound_terms(row)
-    by = max(terms, key=terms.get)
-    return terms[by], "bytes" if by == "bytes" else "operations"
 
 
 def _msm_stages(curve, pts, scalars, c: int, lanes: int, timed: bool = False,
@@ -666,11 +641,11 @@ def phase_proof_batches(srs, batches: list, lanes: int):
         check = i in (0, len(batches) - 1)
         rows, _, _ = _msm_stages(curve, points, scalars, c, lanes, timed=True, check=check,
                                  iters=3, check_combine=True)
-        per_batch.append({k: dict(ms=r["ms"], bound_ms=_bound_ms(r)[0], err=r["err"],
+        per_batch.append({k: dict(ms=r["ms"], bound_ms=RL.bound_ms(r)[0], err=r["err"],
                                   shape=r["shape"]) for k, r in rows.items()})
         for name, row in rows.items():
             sums[name][0] += row["ms"]
-            sums[name][1] += _bound_ms(row)[0]
+            sums[name][1] += RL.bound_ms(row)[0]
             if row["err"]:
                 fail(f"{name} disagrees with its plain version on the proof's batch {i}")
         # row 7: the same interior work, one MSM at a time
@@ -681,9 +656,9 @@ def phase_proof_batches(srs, batches: list, lanes: int):
             sdig, order = MF.sorted_stream(digits[:, b], lanes)
             sums["msm_interior_v1"][0] += _events_ms(
                 lambda: MF.interior_cuda(curve, px, py, sdig, order, 1 << c), 3)
-        sums["msm_interior_v1"][1] += _bound_ms(rows["msm_interior"])[0]
+        sums["msm_interior_v1"][1] += RL.bound_ms(rows["msm_interior"])[0]
         log(f"[proof batches] batch {i}: B={B} "
-            + "; ".join(f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {_bound_ms(r)[0]:.4f} ms"
+            + "; ".join(f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {RL.bound_ms(r)[0]:.4f} ms"
                         + (f", max_abs_err={r['err']}" if r["err"] is not None else "")
                         for k, r in rows.items()))
     log("[proof batches] over the proof: " + json.dumps(
@@ -817,25 +792,24 @@ def phase_launch_shapes(dev, gen, shapes: dict, srs=None) -> dict:
                 a = _rand_words(FR_SPEC, (1 if a_bc else n,), gen, dev)
                 b = _rand_words(FR_SPEC, (1 if b_bc else n,), gen, dev)
                 fn = lambda: M.montmul_cuda(FR_SPEC, a, b)  # noqa: E731
-                work = dict(bytes=ELEM_BYTES * ((1 if a_bc else n) + (1 if b_bc else n) + n),
-                            ops=IMAD_PER_MONTMUL * n)
+                work = RL.montmul_work(n, 1 if a_bc else n, 1 if b_bc else n)
             elif name == "ec_add_unsafe":
                 rows_, lanes = key
                 p, q, adds = _ec_operands(srs, gen, dev, rows_, lanes)
                 fn = lambda: E.add_unsafe_cuda(E.BN254_CURVE, p, q)  # noqa: E731
-                work = _ec_work(rows_, lanes, adds)
+                work = RL.ec_add_work(rows_, lanes, adds)
             else:
                 B, n, s = key[:3]
                 x = _rand_words(FR_SPEC, (B, n), gen, dev)
                 tw = N._twiddles_dev(n.bit_length() - 1, False, dev)
                 if name == "ntt_stage_a":
                     fn = lambda: N.stage_a(FR_SPEC, x, tw, s, key[3])  # noqa: E731
-                    work = _stage_a_work(B, n, s)
+                    work = RL.stage_a_work(B, n, s)
                 else:
                     fn = lambda: N.stage_b(FR_SPEC, x, tw, s)  # noqa: E731
-                    work = _stage_b_work(B, n, s)
+                    work = RL.stage_b_work(B, n, s)
             ms = _graph_ms(fn, calls=10, replays=5)
-            bound = _bound_ms(work)[0]
+            bound = RL.bound_ms(work)[0]
             ms_sum += count * ms
             bound_sum += count * bound
             table.append(dict(shape=list(key), launches=count, ms=ms, bound_ms=bound))
@@ -875,10 +849,6 @@ def _ec_operands(srs, gen, dev, nrows: int, lanes: int):
     return shaped(p, inf_p), shaped(q, inf_q), int((~inf_p & ~inf_q).sum().item())
 
 
-def _ec_work(nrows: int, lanes: int, adds: int) -> dict:
-    return dict(bytes=9 * ELEM_BYTES * nrows * lanes, ops=IMAD_PER_JADD * adds)
-
-
 def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
     """Phase 2, row 8: the fused EC add against `add_unsafe` at the serial
     route's grow shape (8, R, K) and its boundary scan's (8, R, 2K), with
@@ -902,7 +872,7 @@ def phase_ec_add(dev, gen, srs, nrows: int, lanes: int):
     return dict(err=max(errs), shape=shape,
                 ms=_events_ms(lambda: E.add_unsafe_cuda(curve, p, q), 20),
                 plain_ms=_events_ms(lambda: E.add_unsafe(curve, p, q), 3),
-                **_ec_work(nrows, lanes, adds))
+                **RL.ec_add_work(nrows, lanes, adds))
 
 
 def phase_mxu(dev, gen, logn: int = 19):
@@ -960,9 +930,9 @@ def phase_mxu(dev, gen, logn: int = 19):
                f"{X.DESIGN_OPS_TOTAL})", ms=ms, timed_by="cuda_graph",
                clocks=dict(sm_mhz=mhz, power_w=watts),
                plain_ms=_events_ms(lambda: X.mxu_montmul_rows_plain(FR_SPEC, a, b), 2),
-               bytes=3 * ELEM_BYTES * n, ops=2 * X.INT8_MACS * n, rate=INT8_OPS_PER_S,
+               bytes=3 * RL.ELEM_BYTES * n, ops=2 * X.INT8_MACS * n, rate=RL.INT8_OPS_PER_S,
                glue_ops=X.GLUE_OPS_TOTAL * n)
-    terms = _bound_terms(row)
+    terms = RL.bound_terms(row)
     row["bound_terms_ms"] = terms
     log(f"[kernels] mxu_montmul (8, 2^{logn}): {ms:.4f} ms (SM {mhz} MHz, {watts} W) against "
         f"the montmul kernel's {mm_ms:.4f} ms, both from CUDA graph replays; bound "
@@ -1064,6 +1034,52 @@ def _flip(data: bytes) -> bytes:
     bad = bytearray(data)
     bad[len(bad) // 2] ^= 1
     return bytes(bad)
+
+
+@contextlib.contextmanager
+def _python_host_path():
+    """While the block runs, the verifier's and the EVM's pairing check, the
+    verifier's host MSM and the Keccak of the transcript and the EVM are
+    their pure-Python oracles instead of the native library."""
+    from webauthn_halo2_tpu_torch.evm import machine
+    from webauthn_halo2_tpu_torch.fields import pairing as P
+    from webauthn_halo2_tpu_torch.plonk import transcript as T
+    from webauthn_halo2_tpu_torch.plonk import verifier as V
+    from webauthn_halo2_tpu_torch.utils import keccak as KC
+
+    swaps = [(V, "pairing_check", P.pairing_check_py), (V, "_host_msm", V._host_msm_py),
+             (T, "keccak256", KC.keccak256_py), (machine, "pairing_check", P.pairing_check_py),
+             (machine, "keccak256", KC.keccak256_py)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _both_paths(what: str, verify, proof: bytes) -> dict:
+    """`verify` on a valid proof and on a flipped copy, through the native
+    host path and through the Python one: fails unless both answer
+    (accepted, rejected). Returns the seconds of each call."""
+    out = {}
+    for path in ("native", "python"):
+        with _python_host_path() if path == "python" else contextlib.nullcontext():
+            verdicts, secs = [], []
+            for data in (proof, _flip(proof)):
+                t0 = time.time()
+                verdicts.append(bool(verify(data)))
+                secs.append(time.time() - t0)
+        if verdicts != [True, False]:
+            fail(f"{what}: the {path} host path answered {verdicts}, not [True, False]")
+        out[path] = dict(valid_s=secs[0], tampered_s=secs[1])
+    log(f"[verify] {what}: the native and the Python host paths accept the proof and "
+        f"reject a flipped copy; seconds (valid, flipped) native "
+        f"{out['native']['valid_s']:.4f}, {out['native']['tampered_s']:.4f}, Python "
+        f"{out['python']['valid_s']:.4f}, {out['python']['tampered_s']:.4f}")
+    return out
 
 
 def _first_difference(a: str, b: str) -> str:
@@ -1183,7 +1199,7 @@ def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
         errs = {k: v["err"] for k, v in crow.items()}
         log(f"[{tag}] v3 MSM kernels on the commit batch {i} (B={scalars.shape[1]}): "
             f"max_abs_err={errs}; " + "; ".join(
-                f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {_bound_ms(r)[0]:.4f} ms, "
+                f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {RL.bound_ms(r)[0]:.4f} ms, "
                 f"plain {r['plain_ms']:.1f} ms" for k, r in crow.items()))
         if any(errs.values()):
             fail(f"the v3 MSM kernels disagree with their plain versions on the {tag} batch {i}")
@@ -1237,6 +1253,33 @@ def _gb(nbytes: int) -> float:
     return round(nbytes / 1e9, 3)
 
 
+def _span_memory(base: int):
+    """Read device memory at each prover span (traced, so after its fences):
+    allocated at its start and the running peak at its end, in GB above
+    `base`. The first span whose end reaches the proof's peak sets it.
+    Returns (readings, restore)."""
+    from webauthn_halo2_tpu_torch.plonk import prover as PR
+
+    enter_, exit_ = PR._Span.__enter__, PR._Span.__exit__
+    readings = {}
+
+    def enter(self):
+        out = enter_(self)
+        readings[self.name] = dict(start_gb=_gb(torch.cuda.memory_allocated() - base))
+        return out
+
+    def exit(self, *a):
+        exit_(self, *a)
+        readings[self.name]["peak_gb"] = _gb(torch.cuda.max_memory_allocated() - base)
+
+    PR._Span.__enter__, PR._Span.__exit__ = enter, exit
+
+    def restore():
+        PR._Span.__enter__, PR._Span.__exit__ = enter_, exit_
+
+    return readings, restore
+
+
 def phase_es256(dev, gen, srs, seen_shapes: dict, seen_sizes: set, counts,
                 zero_counts) -> tuple:
     """Phase 10: the ES256/WebAuthn circuit at k=17 (in-circuit SHA-256,
@@ -1247,8 +1290,11 @@ def phase_es256(dev, gen, srs, seen_shapes: dict, seen_sizes: set, counts,
     signatures from one seeded key (SHPLONK, Blake2b), each accepted by
     verify_proof, a flipped and a truncated one rejected, and a repeat of
     the warm-up under the same rng byte-equal, with the launch counts from
-    zero over keygen, the timed proofs and their verifications; each
-    launch shape and commit batch of keygen and the first timed proof that
+    zero over keygen, the timed proofs and their verifications; a proof and
+    a flipped copy through the native and the Python host verifier, the
+    same verdicts; one rng proved at WH2_QUOTIENT_CHUNKS 1 and 4, the same
+    bytes, each proof's peak memory and time; each launch shape and commit
+    batch of keygen, the first timed proof and the windowed one that
     phases 1-9 did not check, against the plain versions; the K=6
     two-column lookup circuit of tests/test_torch_prover.py proved on the
     v3, v1 and serial routes, each equal to the stored JAX bytes. Returns
@@ -1378,6 +1424,60 @@ def phase_es256(dev, gen, srs, seen_shapes: dict, seen_sizes: set, counts,
         fail("two ES256 proofs under the same rng differ")
     if launches["serial_bucket_sums"]:
         fail("the ES256 path ran the serial bucket sum")
+    host_paths = _both_paths("verify_proof (ES256)",
+                             lambda data: verify_proof(pk.vk, srs, data, []), proof)
+
+    # the windowed quotient: one rng at WH2_QUOTIENT_CHUNKS 1 and 4, equal
+    # bytes; each proof's peak with the key, as peak_gb above; the windows'
+    # launch shapes join the new shapes checked below
+    windowed = {}
+    saved_chunks = os.environ.get("WH2_QUOTIENT_CHUNKS")
+    try:
+        for chunks in (1, 4):
+            os.environ["WH2_QUOTIENT_CHUNKS"] = str(chunks)
+            stop_windows = _record_launch_shapes(shapes) if chunks > 1 else None
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            memory, stop_memory = _span_memory(base)
+            t0 = time.time()
+            try:
+                data = prove(advice, b"chip_smoke es256 windows")
+            finally:
+                stop_memory()
+            windowed[chunks] = dict(
+                prove_s=time.time() - t0, peak_gb=_gb(torch.cuda.max_memory_allocated() - base),
+                quotient_s=PR.LAST_SPANS.get("quotient (conversions + h)"),
+                span_memory=memory, proof=data)
+            if stop_windows:
+                stop_windows()
+    finally:
+        if saved_chunks is None:
+            os.environ.pop("WH2_QUOTIENT_CHUNKS", None)
+        else:
+            os.environ["WH2_QUOTIENT_CHUNKS"] = saved_chunks
+    # the windows' operands: (8, C) slices at an offset of a column of an
+    # (8, B, ext_n) stack, as the quotient reads them, against the plain version
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import modops as M
+
+    ext_n = 1 << pk.vk.domain.extended_k
+    C = ext_n // 4
+    stack = _rand_words(FR_SPEC, (3, ext_n), gen, dev)
+    for s0, s1 in ((C, 3 * C), (7, ext_n - C)):
+        a, b = stack[:, 1, s0:s0 + C], stack[:, 2, s1:s1 + C]
+        err = _max_abs_err(M.montmul_cuda(FR_SPEC, a, b), M.montmul_plain(FR_SPEC, a, b))
+        log(f"[es256] montmul on (8, {C}) windows at {s0} and {s1} of a stacked "
+            f"(8, 3, {ext_n}): max_abs_err={err}")
+        if err:
+            fail("the montmul kernel disagrees with its plain version on quotient windows")
+    del stack
+    same_bytes = windowed[1].pop("proof") == windowed[4]["proof"]
+    accepted = verify_proof(pk.vk, srs, windowed[4].pop("proof"), [])
+    log("[es256] windowed quotient, one rng: " + json.dumps(windowed)
+        + f"; chunks 4 gives the bytes of chunks 1: {same_bytes}, verified: {accepted}")
+    if not same_bytes or not accepted:
+        fail("the ES256 proof at WH2_QUOTIENT_CHUNKS=4 differs from the one at 1, "
+             "or does not verify")
     del pk, warm, again
     torch.cuda.empty_cache()
 
@@ -1417,13 +1517,15 @@ def phase_es256(dev, gen, srs, seen_shapes: dict, seen_sizes: set, counts,
                    bytes=len(proof),
                    batches=dict(keygen=keygen_sizes, proof=timed[0][1]["batches"]),
                    keygen_spans=pk_spans, proof_spans=timed[0][1]["spans"],
-                   launches=launches)
+                   launches=launches, verify_host_paths=host_paths,
+                   windowed_quotient=windowed)
     return launches, summary
 
 
 def _precompile_seconds(srs) -> dict:
     """Seconds of one ecPairing of two pairs, one ecMul and one ecAdd as the
-    port's EVM runs them (pure Python)."""
+    port's EVM runs them (the pairing in the native library, the others in
+    Python)."""
     from webauthn_halo2_tpu_torch.fields.pairing import pairing_check
     from webauthn_halo2_tpu_torch.fields.ref_curve import BN254_G1_CURVE as G
 
@@ -1431,7 +1533,7 @@ def _precompile_seconds(srs) -> dict:
     ok = pairing_check([(G.g, srs.s_g2), (G.neg(G.g), srs.s_g2)])
     pairing_s = time.time() - t0
     if not ok:
-        fail("the pure-Python pairing check rejected e(g, s) e(-g, s) = 1")
+        fail("the EVM's pairing check rejected e(g, s) e(-g, s) = 1")
     t0 = time.time()
     p = G.mul((1 << 253) + 12345, G.g)
     mul_s = time.time() - t0
@@ -1446,8 +1548,9 @@ def phase_verifiers(api, key_dir: str, vk_path: str, dev, own: dict) -> dict:
     .code file is compile_yul of that text; deployed in the port's EVM, it
     accepts results/proof_{gwc,shplonk}_k17.hex at exactly the gas of
     results/evm_gas.json and the port's own proof within 0.5% of it, and
-    reverts on a flipped bit and on truncation. Returns per scheme the
-    calls' gas and seconds."""
+    reverts on a flipped bit and on truncation; the GWC verifier gives the
+    same verdicts and gas with the EVM's pairing and Keccak in Python.
+    Returns per scheme the calls' gas and seconds."""
     from webauthn_halo2_tpu_torch.evm.machine import Chain
     from webauthn_halo2_tpu_torch.evm.yul_asm import compile_yul
 
@@ -1498,6 +1601,15 @@ def phase_verifiers(api, key_dir: str, vk_path: str, dev, own: dict) -> dict:
         out[scheme] = dict(yul_bytes=len(yul), deploy_bytes=len(deploy), generate_s=gen_s,
                            compile_s=asm_s, deploy_s=deploy_s, deploy_gas=res.gas_used,
                            calls=calls)
+        if scheme == "gwc":  # the EVM's native and Python host paths: verdicts and gas
+            out[scheme]["host_paths"] = _both_paths(
+                "the GWC verifier in the port's EVM",
+                lambda data: chain.call(0xD0, addr, data).success, own[scheme])
+            with _python_host_path():
+                py_gas = chain.call(0xD0, addr, own[scheme]).gas_used
+            if py_gas != calls["own"]["gas"]:
+                fail(f"the GWC verifier ran the port's proof at {calls['own']['gas']} gas "
+                     f"natively and {py_gas} on the Python host path")
         log(f"[evm] {scheme}: Yul equal to results/P256Verifier{suffix}.yul ({len(yul)} "
             f"characters), deploy code {len(deploy)} bytes; generate_verifier {gen_s:.1f}s "
             f"(own proof {own_gas} gas), compile_yul {asm_s:.2f}s, deployed in {deploy_s:.2f}s; "
@@ -1636,11 +1748,13 @@ def phase_server(api, dev, counts, zero_counts) -> tuple:
     with the port's proof (0 -> 1, account deployed), again (1 -> 2), with
     results/proof_gwc_k17.hex (2 -> 3) and a zeroed proof (not executed),
     /chain/receipt (200 and 404); one proving key built for all of it.
-    Any other answer fails the run. Then generate_proofs_batch: 4 SHPLONK
+    /verify and /verify_evm also through the Python host verifier, with
+    the native one's verdicts. Any other answer fails the run. Then, with
+    WH2_TRACE off, generate_proofs_batch (a stream a prover): 4 SHPLONK
     requests, each verified, two proved again alone with the same rng and
-    byte-equal, and 2 GWC requests that verify_evm accepts. Returns (the
-    server's launch counts, the batch's, the numbers for the summary
-    line)."""
+    byte-equal, the batch's time over 4 such proofs alone, then one traced,
+    and 2 GWC requests that verify_evm accepts. Returns (the server's
+    launch counts, the batch's, the numbers for the summary line)."""
     import tempfile
     import threading
     import urllib.error
@@ -1679,7 +1793,7 @@ def phase_server(api, dev, counts, zero_counts) -> tuple:
     base = f"http://127.0.0.1:{srv.server_address[1]}"
     route_s: dict = {}
 
-    def post(route: str, body: dict, want_code: int = 200) -> str:
+    def post(route: str, body: dict, want_code: int = 200, record: bool = True) -> str:
         req = urllib.request.Request(base + route, data=json.dumps(body).encode(),
                                      headers={"Content-Type": "application/json"},
                                      method="POST")
@@ -1689,7 +1803,8 @@ def phase_server(api, dev, counts, zero_counts) -> tuple:
                 code, text = r.status, r.read().decode()
         except urllib.error.HTTPError as e:
             code, text = e.code, e.read().decode()
-        route_s.setdefault(route, []).append(time.time() - t0)
+        if record:
+            route_s.setdefault(route, []).append(time.time() - t0)
         if code != want_code:
             fail(f"{route} answered {code} {text[:300]!r}, not {want_code}")
         return text
@@ -1720,6 +1835,11 @@ def phase_server(api, dev, counts, zero_counts) -> tuple:
             f"({len(gwc_hex) // 2} bytes), /verify_evm: {verdicts}")
         if verdicts != ["verified", "rejected", "verified"]:
             fail(f"/verify and /verify_evm answered {verdicts}")
+        host_paths = {
+            route: _both_paths(route, lambda data, route=route: post(
+                route, {**vk, "proof": data.hex()}, record=False) == "verified",
+                bytes.fromhex(data_hex))
+            for route, data_hex in (("/verify", proof_hex), ("/verify_evm", gwc_hex))}
         msg = post("/generate_evm_verifier", {
             **vk, "sol_code_path": "verifier.sol", "deploy_code_path": "verifier.code",
             "yul_code_path": "verifier.yul", "valid_proof_hex": gwc_hex})
@@ -1771,39 +1891,71 @@ def phase_server(api, dev, counts, zero_counts) -> tuple:
         f"{json.dumps(server_launches)}; seconds a route "
         + json.dumps({k: [round(v, 3) for v in vs] for k, vs in route_s.items()}))
 
-    # batched proving over the same key
+    # batched proving over the same key, untraced (no span fences), each
+    # prover on its own stream; the same requests proved alone, untraced,
+    # then one traced
     params = api.CircuitParams()
     reqs = [_signed_request(7000 + i, 7100 + i) for i in range(4)]
-    zero_counts()
-    t0 = time.time()
-    proofs = api.generate_proofs_batch(reqs, params=params, device=dev,
-                                       rngs=[_det_rng(b"batch %d" % i) for i in range(4)])
-    torch.cuda.synchronize()
-    batch_s = time.time() - t0
-    batch_launches = counts()
-    accepted = [api.verify(p, params=params, device=dev) for p in proofs]
-    single_s, alone = [], []
-    for i in (0, 3):
-        t0 = time.time()
-        alone.append(api.generate_proof(*(bytes(reqs[i][k]) for k in (
+
+    def alone_proof(i: int) -> bytes:
+        return api.generate_proof(*(bytes(reqs[i][k]) for k in (
             "r", "s", "pubkey_x", "pubkey_y", "msghash")), params=params, device=dev,
-            rng=_det_rng(b"batch %d" % i)) == proofs[i])
-        single_s.append(time.time() - t0)
+            rng=_det_rng(b"batch %d" % i))
+
+    trace = os.environ.pop("WH2_TRACE", None)
+    try:
+        zero_counts()
+        t0 = time.time()
+        proofs = api.generate_proofs_batch(reqs, params=params, device=dev,
+                                           rngs=[_det_rng(b"batch %d" % i) for i in range(4)])
+        torch.cuda.synchronize()
+        batch_s = time.time() - t0
+        batch_launches = counts()
+        single_s, alone = [], []
+        for i in (0, 3):
+            t0 = time.time()
+            alone.append(alone_proof(i) == proofs[i])
+            single_s.append(time.time() - t0)
+        t0 = time.time()
+        gwc_reqs = [_signed_request(7200 + i, 7300 + i) for i in range(2)]
+        gwc = api.generate_proofs_batch(gwc_reqs, params=params, scheme="gwc", device=dev)
+        gwc_batch_s = time.time() - t0
+        # the same batch with one prover worker (witnesses still in their own)
+        provers, api._PROVERS = api._PROVERS, 1
+        try:
+            t0 = time.time()
+            one = api.generate_proofs_batch(reqs, params=params, device=dev,
+                                            rngs=[_det_rng(b"batch %d" % i) for i in range(4)])
+            torch.cuda.synchronize()
+            one_worker_s = time.time() - t0
+        finally:
+            api._PROVERS = provers
+        alone.append(one == proofs)
+    finally:
+        if trace is not None:
+            os.environ["WH2_TRACE"] = trace
     t0 = time.time()
-    gwc_reqs = [_signed_request(7200 + i, 7300 + i) for i in range(2)]
-    gwc = api.generate_proofs_batch(gwc_reqs, params=params, scheme="gwc", device=dev)
-    gwc_batch_s = time.time() - t0
+    alone.append(alone_proof(0) == proofs[0])
+    traced_single_s = time.time() - t0
+    accepted = [api.verify(p, params=params, device=dev) for p in proofs]
     gwc_ok = [api.verify_evm(p, params=params, device=dev) for p in gwc]
-    log(f"[batch] 4 SHPLONK proofs in {batch_s:.2f}s (two workers), each accepted: {accepted}; "
-        f"requests 0 and 3 proved alone with the same rng in {[round(v, 2) for v in single_s]}s, "
-        f"byte-equal: {alone}; 2 GWC proofs in {gwc_batch_s:.2f}s, verify_evm: {gwc_ok}; "
+    ratio = batch_s / (4 * sum(single_s) / len(single_s))
+    log(f"[batch] untraced, a stream a prover: 4 SHPLONK proofs in {batch_s:.2f}s (two "
+        f"workers), each accepted: {accepted}; requests 0 and 3 proved alone with the same "
+        f"rng in {[round(v, 2) for v in single_s]}s untraced and request 0 in "
+        f"{traced_single_s:.2f}s traced, byte-equal (the last: the batch with one prover "
+        f"worker): {alone}; the batch over 4 proofs alone: {ratio:.3f}x; with one prover "
+        f"worker {one_worker_s:.2f}s, {one_worker_s / (4 * sum(single_s) / len(single_s)):.3f}x;"
+        f" 2 GWC proofs in {gwc_batch_s:.2f}s, verify_evm: {gwc_ok}; "
         f"launches {json.dumps(batch_launches)}")
     if not all(accepted) or not all(alone) or not all(gwc_ok):
         fail("a batch proof was rejected or differs from the same request proved alone")
     summary = dict(route_s=route_s, dry_run_gas=dry_run_gas, receipts_gas=gas,
-                   batch=dict(shplonk_4_s=batch_s, alone_s=single_s,
+                   verify_host_paths=host_paths,
+                   batch=dict(untraced=True, shplonk_4_s=batch_s, alone_s=single_s,
                               alone_mean_x4_s=4 * sum(single_s) / len(single_s),
-                              gwc_2_s=gwc_batch_s))
+                              batch_over_alone=ratio, traced_alone_s=traced_single_s,
+                              one_worker_s=one_worker_s, gwc_2_s=gwc_batch_s))
     return server_launches, batch_launches, summary
 
 
@@ -1856,6 +2008,13 @@ def main() -> int:
         from webauthn_halo2_tpu_torch.plonk.srs import get_srs
     except ImportError as e:
         fail(f"the port's package is not here: {e}")
+    if RL is None:
+        fail("the port's package is not here: no webauthn_halo2_tpu_torch.utils.roofline")
+    from webauthn_halo2_tpu_torch.utils import host_build as HB
+
+    # the phases read the prover's and keygen's spans, which only a traced
+    # run records (phase 12 times its batch untraced)
+    os.environ.setdefault("WH2_TRACE", "1")
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1865,9 +2024,25 @@ def main() -> int:
     if KG.MSM_ENGINE is not MF:
         fail("the commit engine is not the v3 pipeline, the main path")
 
-    # 1. build
+    # 1. build: the host libraries (g++) in a thread beside the kernels' nvcc
     t0 = time.time()
+    host = {}
+
+    def build_host():
+        try:
+            HB.build_all()
+        except RuntimeError as e:
+            host["error"] = str(e)
+        host["s"] = time.time() - t0
+
+    host_thread = threading.Thread(target=build_host, name="host build")
+    host_thread.start()
     K.build_all()
+    host_thread.join()
+    if "error" in host:
+        fail(f"the host libraries did not build: {host['error']}")
+    log(f"[build] host libraries {', '.join(HB.SOURCES)} built with g++ beside the kernels "
+        f"in {host['s']:.1f}s ({HB.BUILD_DIR})")
     log(f"[build] kernels {', '.join(K.SOURCES)} built in {time.time() - t0:.1f}s "
         f"(each from the start: {json.dumps({k: round(v, 1) for k, v in K.BUILD_SECONDS.items()})}; "
         f"compiler reports: {K.BUILD_DIR}/*.log)")
@@ -1957,6 +2132,8 @@ def main() -> int:
         f"results/proof_shplonk_k17.hex accepted={jax_ok} ({time.time() - t0:.1f}s)")
     if not jax_ok:
         fail("the port's verifier rejected the JAX package's k=17 proof")
+    verification = {"api.verify": _both_paths(
+        "api.verify", lambda data: api.verify(data, params=params, device=dev), proof)}
     launches = counts()
     stop_recording()
     sizes = [sc.shape[1] for _, sc in batches]
@@ -2060,6 +2237,8 @@ def main() -> int:
             fail("the port's verifier rejected the JAX package's k=17 GWC proof")
     log(f"[gwc] verify_evm: own proof accepted, tampered rejected, "
         f"results/proof_gwc_k17.hex accepted ({time.time() - t0:.1f}s)")
+    verification["api.verify_evm"] = _both_paths(
+        "api.verify_evm (GWC)", lambda data: api.verify_evm(data, vk_path, device=dev), gwc)
     n_gwc = len(gwc_sizes)
     want = {"msm_interior": n_gwc, "msm_combine": n_gwc, "msm_scan": 2 * n_gwc}
     if any(gwc_launches[k] != v for k, v in want.items()):
@@ -2140,7 +2319,7 @@ def main() -> int:
     kernels = []
     for name, row in rows.items():
         path, counter = KERNEL_PATH.get(name, ("v3", name))
-        bound, bound_by = _bound_ms(row)
+        bound, bound_by = RL.bound_ms(row)
         kernels.append({
             "name": name, "route": "cuda", "source": KERNEL_META[name][0],
             "replaces": KERNEL_META[name][1], "launches": by_path[path][counter],
@@ -2159,6 +2338,12 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"es256": es256}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    verification.update({"evm_call_gwc": evm["gwc"]["host_paths"],
+                         "es256_verify_proof": es256["verify_host_paths"],
+                         **serving["verify_host_paths"]})
+    print(json.dumps({"card": card, "verification_host_paths": verification,
+                      "batch": serving["batch"], "es256_windowed_quotient":
+                      es256["windowed_quotient"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,9 +14,13 @@ prints the summed time of the kernels on the device, its share of the
 proof's wall time (the device's busy share; the rest is idle), the launch
 count, the per-phase spans with the kernels launched and the device time
 inside each, the port's own kernel launches, the card's name and power
-limit, and the kernels with the most device time, one JSON object a
-route, and writes each route's operator table to --out (the route's name
-added before the suffix for routes other than v3). Needs one CUDA card.
+limit, the kernels with the most device time and the roofline of the
+profiled proof's phases (utils/roofline.py: time, work, bound and the
+fraction of the bound each phase reached), one JSON object a route, and
+writes each route's operator table to --out (the route's name added before
+the suffix for routes other than v3). The phase spans need WH2_TRACE, which
+this script sets unless it is set already: every proof, timed ones too,
+fences its phases. Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ def main() -> int:
     ap.add_argument("--proofs", type=int, default=5)
     ap.add_argument("--routes", default="v3")
     args = ap.parse_args()
+    os.environ.setdefault("WH2_TRACE", "1")  # the spans that the phases are read from
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
@@ -58,7 +63,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from webauthn_halo2_tpu_torch import api
-    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams, ECDSAInputs
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import (
+        CircuitParams, ECDSACircuit, ECDSAInputs)
     from webauthn_halo2_tpu_torch.ops import ec as E
     from webauthn_halo2_tpu_torch.ops import kernels as K
     from webauthn_halo2_tpu_torch.ops import modops as M
@@ -68,6 +74,7 @@ def main() -> int:
     from webauthn_halo2_tpu_torch.ops import ntt as N
     from webauthn_halo2_tpu_torch.plonk import keygen as KG
     from webauthn_halo2_tpu_torch.plonk import prover as PR
+    from webauthn_halo2_tpu_torch.utils import roofline as RL
 
     class PhaseSpan(PR._Span):
         """The prover's phase span, also a profiler range, closed after the
@@ -88,11 +95,14 @@ def main() -> int:
     dev = torch.device("cuda")
     K.build_all()
     params = CircuitParams()
-    api.proving_key(params, device=dev)
     inp = ECDSAInputs.dummy()
 
     def le(v):
         return int(v).to_bytes(32, "little")
+
+    args_ = (le(inp.r), le(inp.s), le(inp.pk[0]), le(inp.pk[1]), le(inp.msghash))
+    advice, _ = api._witness(ECDSACircuit(params), *args_)
+    model = RL.proof_work_model(api.proving_key(params, device=dev), "shplonk", advice)
 
     def measure(route, args_):
         """Warm-up, --proofs timed proofs and one profiled proof on the
@@ -140,6 +150,9 @@ def main() -> int:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
         with open(out, "w") as f:
             f.write(events.table(sort_by="self_device_time_total", row_limit=60))
+        roofline = RL.report(PR.LAST_SPANS, model)
+        print(f"[{route}] roofline of the profiled proof's phases:\n"
+              + RL.format_report(roofline), flush=True)
         return {
             "prove_wall_s_runs": walls,
             "prove_wall_s_median": statistics.median(walls),
@@ -150,14 +163,14 @@ def main() -> int:
             "kernel_launches": sum(e.count for e in kernels),
             "port_kernel_launches": {**M.LAUNCHES, **N.LAUNCHES, **MF.LAUNCHES,
                                      **E.LAUNCHES},
-            "spans_s": PR.LAST_SPANS,
+            "spans_s": dict(PR.LAST_SPANS),
+            "roofline": roofline,
             "phases_under_profiler": phases,
             "top_kernels_by_device_time": [
                 {"name": e.key[:70], "device_ms": e.self_device_time_total / 1e3,
                  "count": e.count} for e in kernels[:12]],
         }
 
-    args_ = (le(inp.r), le(inp.s), le(inp.pk[0]), le(inp.pk[1]), le(inp.msghash))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()

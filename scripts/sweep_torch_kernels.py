@@ -68,6 +68,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from webauthn_halo2_tpu_torch.utils import roofline as RL  # noqa: E402
+
 
 def _cuobjdump() -> str:
     found = shutil.which("cuobjdump")
@@ -284,7 +286,7 @@ def ec_turns(parent: Path | None, dev, rounds: int) -> dict:
         times = _turns({name: (lambda lib=lib: call(lib)) for name, lib in libs.items()},
                        rounds, 20, 10)
         row = dict(shape=[rows, lanes], adds=adds,
-                   bound_ms=CS._bound_ms(CS._ec_work(rows, lanes, adds))[0], times=times)
+                   bound_ms=RL.bound_ms(RL.ec_add_work(rows, lanes, adds))[0], times=times)
         out.append(row)
         print(json.dumps({"ec": {"shape": [rows, lanes], "bound_ms": row["bound_ms"],
                                  **{k: v["ms"] for k, v in times.items()}}}), flush=True)
@@ -330,8 +332,7 @@ def montmul_turns(parent: Path, dev) -> dict:
         cold_t = CS._clocks_during(cold)
         rows.append(dict(tree=who, warm_ms=warm[0], warm_sm_mhz=warm[1], warm_power_w=warm[2],
                          cold_ms=cold_t[0], cold_sm_mhz=cold_t[1], cold_power_w=cold_t[2]))
-    return dict(shape="(8, 2^19)", bound_ms=CS._bound_ms(
-        dict(bytes=3 * CS.ELEM_BYTES * n, ops=CS.IMAD_PER_MONTMUL * n))[0], turns=rows)
+    return dict(shape="(8, 2^19)", bound_ms=RL.bound_ms(RL.montmul_work(n))[0], turns=rows)
 
 
 def parent_mxu_constants(parent: Path, spec_name: str) -> dict:
@@ -471,7 +472,7 @@ def combine_grid(dev, grid: list, rounds: int) -> dict:
                 times[g]["chunks_ms"].append(CS._events_ms(chunks, 3))
                 times[g]["rows_ms"].append(CS._events_ms(rows, 3))
                 times[g]["ms"].append(CS._events_ms(lambda: (chunks(), rows()), 5))
-        row = dict(batch=i, rows=R, bound_ms=CS._bound_ms(stages["msm_combine"])[0],
+        row = dict(batch=i, rows=R, bound_ms=RL.bound_ms(stages["msm_combine"])[0],
                    configs=[dict(G=G, P=P, **times[(G, P)]) for G, P in grid])
         results.append(row)
         print(json.dumps(row), flush=True)

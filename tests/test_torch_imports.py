@@ -2,7 +2,8 @@
 
 An AST scan of every file of webauthn_halo2_tpu_torch/, of chip_smoke.py
 and of the port's scripts (scripts/*_torch_*.py): none imports jax or
-anything of the JAX package. Then each
+anything of the JAX package, and no source of the port (.py, .cpp, .cu,
+.cuh) names the JAX package's native libraries. Then each
 public entry point, called without `device`, raises where there is no
 CUDA device (only an explicit device="cpu" runs on the CPU).
 """
@@ -50,11 +51,27 @@ def test_port_has_the_slice_modules():
                 "evm/machine.py", "evm/yul_interp.py", "plonk/pk_cache.py",
                 "plonk/mock.py", "circuits/sha256.py", "circuits/es256_circuit.py",
                 "client/webauthn.py", "evm/yulc.py", "chain/abi.py", "chain/contracts.py",
-                "server/bundler.py", "server/app.py"):
+                "server/bundler.py", "server/app.py", "utils/roofline.py",
+                "utils/host_build.py", "fields/pairing_native.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",
-        "mxu.cu"}
+        "mxu.cu", "host"}
+    assert {p.name for p in (PORT / "csrc" / "host").iterdir()} >= {"pairing.cpp", "hashing.cpp"}
+
+
+def _port_sources():
+    return sorted(p for p in PORT.rglob("*") if p.suffix in (".py", ".cpp", ".cu", ".cuh"))
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_library_of_the_jax_package(path):
+    """No source of the port names the JAX package's native directory (its
+    libwh2pair.so, libwh2hash.so or their sources): the port builds and
+    loads its own copies."""
+    text = path.read_text()
+    for bad in ("webauthn_halo2_tpu/native", "libwh2pair", "libwh2hash"):
+        assert bad not in text, f"{path} names {bad}"
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -46,7 +46,8 @@ def _check_against_host(srs: S.SRS, idx: list) -> None:
 
 
 @pytest.mark.parametrize("k", [4, 6])
-def test_generate_srs_equals_the_reference(k):
+def test_generate_srs_equals_the_reference(k, monkeypatch):
+    monkeypatch.setenv("WH2_TRACE", "1")  # the spans are recorded only traced
     srs = S.generate_srs(k, device="cpu")
     assert srs.n == 1 << k and srs.g_mono.x.shape == (8, 1 << k)
     _check_against_host(srs, list(range(1 << k)))
@@ -63,6 +64,7 @@ def test_generate_srs_equals_the_reference(k):
 
 def test_get_srs_generates_saves_and_reloads_a_degree_without_a_file(tmp_path, monkeypatch):
     monkeypatch.setattr(S, "_SRS_MEM_CACHE", {})
+    monkeypatch.setenv("WH2_TRACE", "1")  # a generated SRS then carries its spans
     jax_path, port_path = S.srs_paths(5, b"dev", str(tmp_path))
     srs = S.get_srs(5, cache_dir=str(tmp_path), device="cpu")
     assert srs.spans and sorted(p.name for p in tmp_path.iterdir()) == [

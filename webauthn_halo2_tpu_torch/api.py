@@ -13,19 +13,21 @@ loaded from the key file there, which is written first if it is missing
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
 import os
+import sys
 import threading
 import time
 
 from .circuits.ecdsa_circuit import CircuitParams, ECDSACircuit, ECDSAInputs
-from .device import resolve
+from .device import resolve, tracing
 from .plonk.keygen import ProvingKey, keygen
 from .plonk import pk_cache
 from .plonk.pk_cache import keygen_cached
-from .plonk.prover import create_proof
+from .plonk.prover import _fused_for, create_proof
 from .plonk.srs import get_srs
 from .plonk.transcript import KeccakRead, KeccakWrite
 from .plonk.verifier import verify_proof
@@ -112,7 +114,17 @@ def _prove(r, s, pubkey_x, pubkey_y, msghash, proving_key_path, params,
     pk = _keys(params, proving_key_path, device)
     circuit = ECDSACircuit(params)
     advice, instances = _witness(circuit, r, s, pubkey_x, pubkey_y, msghash)
-    return create_proof(pk, advice, instances, rng=rng, device=pk.device, **opening)
+    proof = create_proof(pk, advice, instances, rng=rng, device=pk.device, **opening)
+    if tracing():
+        from .plonk.prover import LAST_SPANS
+        from .utils import roofline
+
+        # the advice MSM counted dense (an upper count, marked): counting
+        # its digits would add most of a second to the traced proof
+        model = roofline.proof_work_model(pk, opening.get("scheme", "shplonk"))
+        print(roofline.format_report(roofline.report(LAST_SPANS, model)),
+              file=sys.stderr, flush=True)
+    return proof
 
 
 def _witness(circuit: ECDSACircuit, r, s, pubkey_x, pubkey_y, msghash) -> tuple:
@@ -220,29 +232,67 @@ def _opening(scheme: str) -> dict:
     raise ValueError(f"unknown batch scheme {scheme!r}")
 
 
+_PROVERS = 2  # create_proof workers of a batch
+_STREAMS: dict = {}
+
+
+def _prover_streams(dev) -> tuple:
+    """The batch provers' CUDA streams on `dev`, made once per process."""
+    with _PK_LOCK:
+        if str(dev) not in _STREAMS:
+            import torch
+
+            _STREAMS[str(dev)] = tuple(torch.cuda.Stream(dev) for _ in range(_PROVERS))
+        return _STREAMS[str(dev)]
+
+
 def prove_batch(pk: ProvingKey, witnesses: list, scheme: str = "shplonk",
                 rngs: list | None = None) -> list[bytes]:
     """N independent proofs over one pk. `witnesses` are callables, each
     returning (advice, instances); one worker runs them in order, and two
     create_proof workers prove what it hands on, each proof with its own
-    `rngs[i]` (default os.urandom). Both provers launch on the card's
-    default stream, which orders their kernels; they share only what they
-    read (the pk and its stacked tensors) and the launch counters and
-    `prover.LAST_SPANS`, which are then the batch's and not one proof's."""
+    `rngs[i]` (default os.urandom). On a card each prover thread runs on a
+    stream of its own (every kernel wrapper launches on the current
+    stream), one of two kept per device for the process, so the caching
+    allocator reuses each stream's freed blocks from proof to proof. Before
+    each proof the stream waits for the caller's stream, where the key and
+    its stacked tensors were built; the provers only read those. Untraced,
+    a proof waits only for its own stream, so one prover's host work can
+    run while the other's kernels occupy the card. The provers share the
+    launch counters and, under WH2_TRACE, `prover.LAST_SPANS`, which are
+    then the batch's and not one proof's."""
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch
 
     rngs = rngs or [os.urandom] * len(witnesses)
     if len(rngs) != len(witnesses):
         raise ValueError(f"{len(rngs)} rngs for {len(witnesses)} witnesses")
+    _opening(scheme)  # an unknown scheme raises before any work starts
+    if not witnesses:
+        return []
+    dev = pk.device
+    _fused_for(pk)  # the key's stacks, built here before any prover reads them
+    origin = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+    free = list(_prover_streams(dev)) if origin is not None else []
+    worker = threading.local()
+
+    def take_stream():  # once per prover thread
+        if free:
+            worker.stream = free.pop()
 
     def prove(args, rng):
         advice, instances = args
-        return create_proof(pk, advice, instances, rng=rng, device=pk.device,
-                            **_opening(scheme))
+        on_stream = contextlib.nullcontext()
+        if origin is not None:
+            worker.stream.wait_stream(origin)
+            on_stream = torch.cuda.stream(worker.stream)
+        with on_stream:
+            return create_proof(pk, advice, instances, rng=rng, device=dev,
+                                **_opening(scheme))
 
-    _opening(scheme)  # an unknown scheme raises before any work starts
     with ThreadPoolExecutor(max_workers=1) as wpool, \
-            ThreadPoolExecutor(max_workers=2) as ppool:
+            ThreadPoolExecutor(max_workers=_PROVERS, initializer=take_stream) as ppool:
         wfuts = [wpool.submit(w) for w in witnesses]
         pfuts = [ppool.submit(prove, f.result(), rng) for f, rng in zip(wfuts, rngs)]
         return [f.result() for f in pfuts]

@@ -3,9 +3,12 @@
 Every public entry point takes `device=None`. None means the first CUDA
 card, and raises when there is none: only an explicit `device="cpu"` runs
 on the CPU, where every kernel wrapper takes its plain PyTorch version.
-Constant tensors (twiddles, field constants) are kept per device here.
+Constant tensors (twiddles, field constants) are kept per device here,
+and the tracing switch and stream fence that the spans share.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -15,13 +18,29 @@ _CACHE: dict = {}
 def cached(key, make, device, dtype=None) -> torch.Tensor:
     """A constant tensor kept on `device`: `make()` (numpy) is copied over
     once per key and device. A copy from host memory waits for the stream,
-    so constants used inside the prover's loops must not be remade."""
+    so constants used inside the prover's loops must not be remade. On a
+    card the copy is finished before the tensor is kept, because provers
+    on other streams read it too."""
     ck = (key, str(device), dtype)
     t = _CACHE.get(ck)
     if t is None:
         t = torch.as_tensor(make()).to(device=device, dtype=dtype)
+        fence(t.device)
         _CACHE[ck] = t
     return t
+
+
+def tracing() -> bool:
+    """WH2_TRACE, read at each call: only under it do spans fence, record
+    and print."""
+    return bool(os.environ.get("WH2_TRACE"))
+
+
+def fence(device: torch.device) -> None:
+    """Wait for the work queued on the current stream of a CUDA device (the
+    calling thread's stream, not the whole card); nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def resolve(device=None) -> torch.device:

@@ -1,8 +1,10 @@
-"""bn254 optimal-ate pairing (host-side, pure Python).
+"""bn254 optimal-ate pairing (host-side).
 
-Used only on the cold path: KZG pairing checks in the local verifier
-(the reference delegates this to `halo2curves::bn256::Bn256` — SURVEY §L0;
-proof *generation* needs no pairings, so this never touches the TPU).
+Used only on the cold path: KZG pairing checks in the local verifier and
+the in-repo EVM's precompile (proof generation needs no pairings, so this
+never touches the card). `pairing_check` runs in the native tower
+(csrc/host/pairing.cpp through fields/pairing_native.py); the pure-Python
+tower below, `pairing_check_py`, is the tests' oracle for it.
 
 Construction: Fq12 = Fq[w]/(w^12 - 18 w^6 + 82), with Fq2 embedded via
 i = w^6 - 9 (i^2 = -1). G2 lives on the D-twist y^2 = x^3 + 3/(9+i); points
@@ -11,6 +13,7 @@ are untwisted into Fq12 as (x * w^2, y * w^3). Standard public math
 """
 from __future__ import annotations
 
+from . import pairing_native
 from .constants import BN254_FQ as Q
 from .constants import BN254_FR, BN254_X
 from .ref_field import inv_mod
@@ -268,11 +271,15 @@ def pairing(q_pt, p_pt) -> Fq12:
 
 
 def pairing_check(pairs: list[tuple[tuple[int, int], tuple]]) -> bool:
-    """prod e(P_i, Q_i) == 1, via multi-Miller + one final exponentiation.
+    """prod e(P_i, Q_i) == 1 in the native tower (built at first use; a
+    failed build raises). `pairs` = [(G1_point, G2_point), ...]; None G1
+    entries are skipped (identity contributes 1 to the product)."""
+    return pairing_native.pairing_check(pairs)
 
-    `pairs` = [(G1_point, G2_point), ...]; None G1 entries are skipped
-    (identity contributes 1 to the product). Pure Python: the verifier
-    runs it once per proof."""
+
+def pairing_check_py(pairs: list[tuple[tuple[int, int], tuple]]) -> bool:
+    """pairing_check in pure Python, via multi-Miller + one final
+    exponentiation: the oracle the native tower is held against."""
     f = Fq12.one()
     for p_pt, q_pt in pairs:
         if p_pt is None:

@@ -11,6 +11,7 @@ Stacks of columns are (8, B, n): word-major, then column, then row.
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
@@ -230,7 +231,10 @@ class FusedPhases:
 
     # -- phase 6: quotient ---------------------------------------------------
     def quotient(self, ext_stack, beta_t, gamma_t, y_t):
-        """-> the quotient pieces in coefficient form, (8, pieces, n)."""
+        """-> the quotient pieces in coefficient form, (8, pieces, n). h is
+        evaluated over WH2_QUOTIENT_CHUNKS windows of the extended domain
+        (read at each call; default 1, the whole domain at once), which
+        changes the peak memory and the launch shapes, never the values."""
         from .prover import _quotient_core
 
         cs_ = self.cs
@@ -242,7 +246,8 @@ class FusedPhases:
         n = self.n
         dev = ext_stack.device
         core = _quotient_core(cs_, self.usable, ratio, offsets, self.na,
-                              self.ni, self.nz, self.nlk)
+                              self.ni, self.nz, self.nlk,
+                              chunks=int(os.environ.get("WH2_QUOTIENT_CHUNKS", "1")))
         zh_inv = cached(("zhinv", self.domain.k, self.domain.extended_k),
                               self.domain.zh_inv_extended_np, dev)
         h_ext = core(pk.fixed_ext, pk.sigma_ext, ext_stack, pk.l0_ext,

@@ -14,6 +14,7 @@ as host affine ints.
 from __future__ import annotations
 
 import hashlib
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -25,7 +26,7 @@ from ..fields.limbs import FR_SPEC, W, ints_to_words
 from ..ops import ec as E
 from ..ops import modops as M
 from ..ops import msm_fused
-from ..device import resolve
+from ..device import fence, resolve, tracing
 from . import cs as CS
 from .domain import COSET_GEN, Domain
 from .srs import SRS
@@ -156,11 +157,15 @@ def keygen(srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list, copies: list,
     clock = [time.time()]
 
     def span(name):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        """The seconds since the last span, only under WH2_TRACE: fenced,
+        kept in pk.spans and printed, as the JAX package's keygen does."""
+        if not tracing():
+            return
+        fence(dev)
         now = time.time()
         spans[name] = now - clock[0]
         clock[0] = now
+        print(f"[span] {name}: {spans[name]:.3f}s", file=sys.stderr, flush=True)
 
     k = srs.k
     n = 1 << k
@@ -244,6 +249,7 @@ def keygen(srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list, copies: list,
     repr_int = int.from_bytes(h.digest(), "little") % R
 
     vk = VerifyingKey(domain, cs, fixed_comms, perm_comms, repr_int)
+    fence(dev)  # the key's tensors are finished when it returns
     return ProvingKey(vk, srs, dev, fixed_lagrange, fixed_coeff, fixed_ext,
                       sigma_lagrange, sigma_coeff, sigma_ext, l0_ext,
                       llast_ext, lblind_ext, x_ext, omega_mont, spans)

@@ -14,6 +14,7 @@ the same `rng` gives the same proof bytes.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time as _time
 
@@ -22,7 +23,7 @@ import torch
 from ..fields.constants import BN254_FR, BN254_FR_DELTA
 from ..fields.limbs import FR_SPEC, W, ints_to_words, words_to_ints
 from ..ops import modops as M
-from ..device import resolve
+from ..device import fence, resolve, tracing
 from . import cs as CS
 from .domain import Domain
 from .fused import FusedPhases, batched_c2e, batched_l2c, to_mont_split, to_mont_stack
@@ -32,30 +33,36 @@ from .transcript import Blake2bWrite
 R = BN254_FR
 SPEC = FR_SPEC
 
-LAST_SPANS: dict[str, float] = {}  # phase -> seconds, last proof
+LAST_SPANS: dict[str, float] = {}  # phase -> seconds, last traced proof
 
 
 class _Span:
-    """Phase span timer into LAST_SPANS. On a CUDA device it fences with
-    torch.cuda.synchronize() at both ends, so the span holds the device
-    time of its phase."""
+    """Phase span timer, on only under WH2_TRACE (read as each span runs, as
+    the JAX package's _Span does): then it fences the proof's stream at both
+    ends, so the span holds the device time of its phase, records the
+    seconds in LAST_SPANS and prints a `[span]` line to stderr. Untraced it
+    does nothing, so two provers on their own streams do not wait for each
+    other."""
+
+    fence = staticmethod(fence)
 
     def __init__(self, name: str, device):
         self.name = name
         self.device = device
 
-    def _fence(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def __enter__(self):
-        self._fence()
-        self.t0 = _time.time()
+        self.on = tracing()
+        if self.on:
+            self.fence(self.device)
+            self.t0 = _time.time()
         return self
 
     def __exit__(self, *a):
-        self._fence()
-        LAST_SPANS[self.name] = _time.time() - self.t0
+        if self.on:
+            self.fence(self.device)
+            dt = _time.time() - self.t0
+            LAST_SPANS[self.name] = dt
+            print(f"[span] {self.name}: {dt:.3f}s", file=sys.stderr, flush=True)
 
 
 def _rand_field(rng) -> int:
@@ -125,8 +132,7 @@ def create_proof(
     domain: Domain = pk.vk.domain
     dev = pk.device
     n = domain.n
-    usable = cs.usable_rows(n)
-    u = usable  # boundary row: z's final value; data occupies [0, usable)
+    usable = cs.usable_rows(n)  # data rows; row `usable` holds z's final value
     omega = domain.omega
     t = transcript if transcript is not None else Blake2bWrite()
     pk.vk.hash_into(t)
@@ -220,28 +226,7 @@ def create_proof(
 
     # --- phase 7: evaluations (one host pull) ---
     with _Span("evaluations", dev):
-        sq = cs.sorted_queries()
-        plan = []  # (unified label, rot) in multiopen order
-        for idx, rot in sq[CS.ADVICE]:
-            plan.append(((CS.ADVICE, idx), rot))
-        for idx, rot in sq[CS.FIXED]:
-            plan.append(((CS.FIXED, idx), rot))
-        for idx, rot in sq[CS.INSTANCE]:
-            plan.append(((CS.INSTANCE, idx), rot))
-        plan.append((("random",), 0))
-        for j in range(fp.nsig):
-            plan.append((("sigma", j), 0))
-        for i in range(nz):
-            plan.append((("perm_z", i), 0))
-            plan.append((("perm_z", i), 1))
-        for i in range(nz - 1):
-            plan.append((("perm_z", i), u))
-        for li in range(nlk):
-            plan.append((("lookup_z", li), 0))
-            plan.append((("lookup_z", li), 1))
-            plan.append((("lookup_ap", li), 0))
-            plan.append((("lookup_ap", li), -1))
-            plan.append((("lookup_sp", li), 0))
+        plan = query_plan(cs, n)
 
         def rot_point(rot: int) -> int:
             if rot >= 0:
@@ -267,12 +252,44 @@ def create_proof(
         ucoeff = fp.unified_stack(coeff_stack, pk._fixed_coeff_stack,
                                   pk._sigma_coeff_stack, h_comb)
         opens[scheme](pk, fp, t, queries, rot_point, ucoeff)
+    fence(dev)  # the proof's own stream: its work is finished when it returns
     return t.finalize()
 
 
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+def query_plan(cs: CS.ConstraintSystem, n: int) -> list:
+    """(unified label, rot) of every evaluation a proof writes, in
+    multiopen order (the quotient's h is opened after them, at rot 0)."""
+    sq = cs.sorted_queries()
+    nz = cs.num_perm_chunks()
+    nlk = len(cs.lookups)
+    u = cs.usable_rows(n)
+    plan = []
+    for idx, rot in sq[CS.ADVICE]:
+        plan.append(((CS.ADVICE, idx), rot))
+    for idx, rot in sq[CS.FIXED]:
+        plan.append(((CS.FIXED, idx), rot))
+    for idx, rot in sq[CS.INSTANCE]:
+        plan.append(((CS.INSTANCE, idx), rot))
+    plan.append((("random",), 0))
+    for j in range(len(cs.perm_columns)):
+        plan.append((("sigma", j), 0))
+    for i in range(nz):
+        plan.append((("perm_z", i), 0))
+        plan.append((("perm_z", i), 1))
+    for i in range(nz - 1):
+        plan.append((("perm_z", i), u))
+    for li in range(nlk):
+        plan.append((("lookup_z", li), 0))
+        plan.append((("lookup_z", li), 1))
+        plan.append((("lookup_ap", li), 0))
+        plan.append((("lookup_ap", li), -1))
+        plan.append((("lookup_sp", li), 0))
+    return plan
+
 
 def _permute_lookup_pair(a_vals: list[int], s_vals: list[int]):
     """halo2 permute_expression_pair: sort input; build table permutation."""
@@ -417,9 +434,17 @@ def _polymul(a, b):
 # ---------------------------------------------------------------------------
 
 def _quotient_core(cs: CS.ConstraintSystem, u: int, ratio: int,
-                   offsets: dict, na: int, ni: int, nz: int, nlk: int):
-    """The h_ext evaluation over stacked extended tensors (8, B, ext_n);
-    a rotation is a roll by rot * ratio along the extended axis."""
+                   offsets: dict, na: int, ni: int, nz: int, nlk: int,
+                   chunks: int = 1):
+    """The h_ext evaluation over stacked extended tensors (8, B, ext_n),
+    over `chunks` windows [s, s + C) of the extended domain, C = ext_n /
+    chunks (WH2_QUOTIENT_CHUNKS, the JAX package's memory mode; 1 is the
+    whole domain in one window), one after another, joined. Every term is
+    pointwise in the extended axis except rotations, so a window of a
+    tensor rotated by rot is the circular window [s + rot * ratio, ...) of
+    its source: at most two slices (one window of the whole domain gives a
+    roll). The temporaries of each constraint are (8, C), and the values
+    are the same for every count."""
     chunk_len = cs.permutation_chunk_len()
     perm_cols = cs.perm_columns
     adv_off, inst_off = offsets["adv"], offsets["inst"]
@@ -427,13 +452,27 @@ def _quotient_core(cs: CS.ConstraintSystem, u: int, ratio: int,
 
     def core(fixed_ext, sigma_ext, ext_stack, l0, llast, lblind, x_ext,
              zh_inv, beta_t, gamma_t, y_t):
-        def get(src, rot):
-            return torch.roll(src, -rot * ratio, dims=-1) if rot else src
+        def body(get):
+            return _quotient_body(
+                cs, u, chunk_len, perm_cols, adv_off, inst_off, z_off, lk_off,
+                nz, nlk, fixed_ext, sigma_ext, ext_stack, l0, llast, lblind,
+                x_ext, zh_inv, beta_t, gamma_t, y_t, get)
 
-        return _quotient_body(
-            cs, u, chunk_len, perm_cols, adv_off, inst_off, z_off, lk_off,
-            nz, nlk, fixed_ext, sigma_ext, ext_stack, l0, llast, lblind,
-            x_ext, zh_inv, beta_t, gamma_t, y_t, get)
+        ext_n = zh_inv.shape[-1]
+        if chunks < 1 or ext_n % chunks:
+            raise ValueError(f"WH2_QUOTIENT_CHUNKS={chunks} does not divide the "
+                             f"extended domain of {ext_n} rows")
+        C = ext_n // chunks
+
+        def window(src, start):
+            start %= ext_n
+            if start + C <= ext_n:
+                return src[..., start:start + C]
+            return torch.cat([src[..., start:], src[..., :start + C - ext_n]], dim=-1)
+
+        parts = [body(lambda src, rot, s=s: window(src, s + rot * ratio))
+                 for s in range(0, ext_n, C)]
+        return parts[0] if chunks == 1 else torch.cat(parts, dim=-1)
 
     return core
 

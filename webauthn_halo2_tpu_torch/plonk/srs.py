@@ -22,6 +22,7 @@ import contextlib
 import functools
 import hashlib
 import os
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -29,7 +30,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..device import cached, resolve
+from ..device import cached, fence, resolve, tracing
 from ..fields.constants import BN254_FQ, BN254_FR, BN254_G1, BN254_G2_X, BN254_G2_Y
 from ..fields.ref_curve import BN254_G1_CURVE
 from ..fields.ref_field import batch_inv
@@ -233,21 +234,25 @@ def to_affine_batch(curve: E.CurveSpec, pts: E.JPoint) -> E.JPoint:
 
 @contextlib.contextmanager
 def _span(seconds: dict, name: str, device):
-    """Add the seconds of the block to seconds[name]; on a CUDA device the
-    block is fenced by a synchronize at both ends."""
-    fence = torch.cuda.synchronize if device.type == "cuda" else (lambda _d: None)
+    """Only under WH2_TRACE: the block fenced at both ends, its seconds
+    added to seconds[name] and printed."""
+    if not tracing():
+        yield
+        return
     fence(device)
     t0 = time.time()
     yield
     fence(device)
-    seconds[name] = seconds.get(name, 0.0) + time.time() - t0
+    dt = time.time() - t0
+    seconds[name] = seconds.get(name, 0.0) + dt
+    print(f"[span] {name}: {dt:.3f}s", file=sys.stderr, flush=True)
 
 
 def fixed_base_msm_points(base: tuple[int, int], scalars: list[int],
                           chunk: int = CHUNK, device=None,
                           spans: dict | None = None) -> E.JPoint:
     """Host scalars -> device affine points [s_i * base], in chunks; the
-    seconds of each step are added to `spans`."""
+    seconds of each step are added to `spans` under WH2_TRACE."""
     dev = resolve(device)
     spans = {} if spans is None else spans
     with _span(spans, "window table", dev):
@@ -293,9 +298,9 @@ def srs_scalars(k: int, seed: bytes = b"dev") -> tuple[list[int], list[int]]:
 
 def generate_srs(k: int, seed: bytes = b"dev", device=None) -> SRS:
     """The dev SRS of degree k on `device` (None: the card), equal to the
-    JAX package's generate_srs point for point; `spans` holds the seconds
-    of its host scalars, window table, fixed-base multiplies and
-    conversion to affine."""
+    JAX package's generate_srs point for point. Under WH2_TRACE its
+    `spans` hold the seconds of its host scalars, window table, fixed-base
+    multiplies and conversion to affine; untraced they stay empty."""
     dev = resolve(device)
     spans: dict[str, float] = {}
     with _span(spans, "host scalars", dev):
@@ -303,6 +308,7 @@ def generate_srs(k: int, seed: bytes = b"dev", device=None) -> SRS:
         s_g2 = g2_mul(derive_tau(seed), G2_GEN)
     g_mono = fixed_base_msm_points(BN254_G1, powers, device=dev, spans=spans)
     g_lag = fixed_base_msm_points(BN254_G1, lag, device=dev, spans=spans)
+    fence(dev)  # the points are finished when it returns
     return SRS(k, seed, g_mono, g_lag, G2_GEN, s_g2, spans)
 
 

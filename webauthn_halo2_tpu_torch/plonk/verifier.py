@@ -1,7 +1,8 @@
 """The PLONK verifier (host-side): verify_proof with SingleStrategy parity.
 
 A copy of the JAX package's plonk/verifier.py: it mirrors every prover
-phase over Python ints and ends in one pure-Python pairing check. Only
+phase over Python ints and ends in one pairing check; the host MSM and the
+pairing run in the native library (csrc/host/pairing.cpp). Only
 `_g_lag_prefix` touches tensors (the port's SRS, through ops/ec).
 """
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 from ..fields.constants import BN254_FR, BN254_FR_DELTA
 from ..fields.ref_curve import BN254_G1_CURVE
 from ..fields.ref_field import inv_mod
+from ..fields import pairing_native
 from ..fields.pairing import pairing_check
 from . import cs as CS
 from .keygen import VerifyingKey
@@ -20,7 +22,13 @@ G = BN254_G1_CURVE
 
 
 def _host_msm(pairs):
-    """sum s*P over host affine int points (None skipped)."""
+    """sum s*P over host affine int points (None skipped), in the native
+    library (csrc/host/pairing.cpp; a failed build raises)."""
+    return pairing_native.g1_msm(pairs)
+
+
+def _host_msm_py(pairs):
+    """_host_msm in pure Python: the oracle the native MSM is held against."""
     acc = None
     for pt, sc in pairs:
         acc = G.add(acc, G.mul(sc % R, pt))

@@ -1,9 +1,16 @@
-"""Keccak-256 (Ethereum variant), pure Python from the specification.
+"""Keccak-256 (Ethereum variant).
 
-Used by the EVM transcript (EvmTranscript parity — ecdsa_p256.rs:329-377)
-and verifier-side challenge derivation.
+Used by the EVM transcript (EvmTranscript parity — ecdsa_p256.rs:329-377),
+verifier-side challenge derivation and the in-repo EVM. `keccak256` runs
+in the native library (csrc/host/hashing.cpp, built at first use by
+utils/host_build.py; a failed build raises); `keccak256_py`, from the
+specification, is the tests' oracle for it.
 """
 from __future__ import annotations
+
+import ctypes
+
+from . import host_build
 
 # --- Keccak-f[1600] ---
 
@@ -46,10 +53,10 @@ def _f1600(st):
         st[0] ^= rc
 
 
-def _keccak256_py(data: bytes) -> bytes:
+def keccak256_py(data: bytes) -> bytes:
     rate = 136
     st = [0] * 25
-    padded = bytearray(data)
+    padded = bytearray(bytes(data))
     padded.append(0x01)
     while len(padded) % rate:
         padded.append(0)
@@ -63,4 +70,7 @@ def _keccak256_py(data: bytes) -> bytes:
 
 
 def keccak256(data: bytes) -> bytes:
-    return _keccak256_py(bytes(data))
+    data = bytes(data)
+    out = ctypes.create_string_buffer(32)
+    host_build.load("hashing").wh2_keccak256(data, len(data), out)
+    return out.raw
