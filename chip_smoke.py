@@ -124,18 +124,41 @@ Phases, one or more lines each:
      traced proof beside them, 2 GWC proofs verified, the 4 SHPLONK
      proofs again with one prover worker, byte-equal); a `serving` JSON
      line of its and phase 11's numbers;
- 13. every kernel of a path launched during that path's run (each run with
+ 13. proving over ranks (webauthn_halo2_tpu_torch/parallel): four gloo
+     ranks spawned on the one card (parallel/ranks.py, a file rendezvous
+     in a new directory under build/, removed at the end; each rank's
+     prints in its own log there, shown if it fails). Each rank holds
+     sharded_ntt and sharded_intt at k=17 on 8 columns,
+     sharded_coeff_to_extended from 17 to 19, sharded_msm on a full k=17
+     column and batch_commit of 8 columns against the same functions on
+     one device in that rank (the MSM also against the host oracle of
+     phase 3); then keygen and api.generate_proof of phase 5's signature
+     and rng with WH2_SHARDED=1, the launch counters, ROUTES and
+     COLLECTIVES from zero: every rank's bytes equal phase 5's proof,
+     api.verify accepts it on rank 0, every hooked call took the sharded
+     route and rows 1-6 launched in each rank; each rank's keygen and
+     proof seconds beside phases 4 and 5's, the collectives' calls, bytes
+     and seconds a proof, and its peak memory. Rank 0 records the launch
+     shapes and commit batches of its sharded primitives, keygen and proof
+     (each rank's block is an MSM of n/D = 2^15 points, c = 11; the local
+     transforms run at 2^15 and 2^17 over the stacks' columns), and holds
+     every montmul and NTT shape phases 5 and 9 did not have, and every
+     commit batch of another size, against the plain versions
+     (`phase_new_launch_shapes`). Then a one-rank NCCL group runs the
+     primitives at D = 1, the card's tensors handed to NCCL. Any rank's
+     failure fails the run;
+ 14. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
      the serial bucket sum did not run on the v3 route, rows 1-6 ran on
-     the GWC, ES256, server and batch paths, and the montmul on the SRS
-     path; a `kernels` JSON
-     line with launches, times, bounds, the plain versions' times, for the
-     MSM kernels their times and bounds over the proof's batches (the
-     combine's also per batch), and for rows 1-3 the proof's launch shapes;
-     then the `es256` and `serving` lines, and a line with the card's name
-     and power limit, the verification times on both host paths, the
-     untraced batch and ES256's windowed quotient.
+     the GWC, ES256, server, batch and sharded paths (the sharded path's
+     counts are rank 0's), and the montmul on the SRS path; a `kernels`
+     JSON line with launches, times, bounds, the plain versions' times,
+     for the MSM kernels their times and bounds over the proof's batches
+     (the combine's also per batch), and for rows 1-3 the proof's launch
+     shapes; then the `es256`, `serving` and `sharded` lines, and a line
+     with the card's name and power limit, the verification times on both
+     host paths, the untraced batch and ES256's windowed quotient.
 """
 from __future__ import annotations
 
@@ -1157,9 +1180,10 @@ def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
                             seen_sizes=(), batches=(), spec=None) -> int:
     """Each montmul and NTT launch shape in `new` that `seen` lacks, against
     its plain version on random words at that shape, exact; then the v3 MSM
-    kernels on each commit batch of `batches` (bases, scalars) whose size
-    is not in `seen_sizes`, and on the last (random-scalar) batch, against
-    theirs on that batch, each timed beside its least work. The montmul
+    kernels, at the window and lanes of the batch's own n, on each commit
+    batch of `batches` (bases, scalars) of another n than the SRS's or of
+    a size not in `seen_sizes`, and on the last (random-scalar) batch,
+    against theirs on that batch, each timed beside its least work. The montmul
     runs in `spec` (default Fr). Returns how many shapes and batches were
     checked."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
@@ -1192,12 +1216,14 @@ def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
                 fail(f"{name} disagrees with its plain version at the {tag} path's shape {key}")
             checked += 1
     for i, (points, scalars) in enumerate(batches):
-        if i != len(batches) - 1 and scalars.shape[1] in seen_sizes:
+        n = scalars.shape[-1]
+        if i != len(batches) - 1 and n == srs.n and scalars.shape[1] in seen_sizes:
             continue
-        crow, _, _ = _msm_stages(E.BN254_CURVE, points, scalars, MS._default_c(srs.n),
-                                 MF.lanes_for(srs.n), timed=True, iters=3)
+        crow, _, _ = _msm_stages(E.BN254_CURVE, points, scalars, MS._default_c(n),
+                                 MF.lanes_for(n), timed=True, iters=3)
         errs = {k: v["err"] for k, v in crow.items()}
-        log(f"[{tag}] v3 MSM kernels on the commit batch {i} (B={scalars.shape[1]}): "
+        log(f"[{tag}] v3 MSM kernels on the commit batch {i} (B={scalars.shape[1]}, "
+            f"n=2^{n.bit_length() - 1}): "
             f"max_abs_err={errs}; " + "; ".join(
                 f"{k} {r['shape']}: {r['ms']:.4f} ms, bound {RL.bound_ms(r)[0]:.4f} ms, "
                 f"plain {r['plain_ms']:.1f} ms" for k, r in crow.items()))
@@ -1959,6 +1985,307 @@ def phase_server(api, dev, counts, zero_counts) -> tuple:
     return server_launches, batch_launches, summary
 
 
+def _counts() -> dict:
+    """This process's launch counters (rows 1-6, 8, 9) and the serial
+    bucket sum's calls."""
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+    from webauthn_halo2_tpu_torch.ops import mxu_mod as X
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    return {"montmul": M.LAUNCHES["montmul"], "ntt_stage_a": N.LAUNCHES["ntt_stage_a"],
+            "ntt_stage_b": N.LAUNCHES["ntt_stage_b"], **MF.LAUNCHES, **E.LAUNCHES,
+            **X.LAUNCHES, "serial_bucket_sums": MS.CALLS["window_bucket_sum"]}
+
+
+def _zero_counts() -> None:
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import modops as M
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+    from webauthn_halo2_tpu_torch.ops import mxu_mod as X
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+
+    for table in (M.LAUNCHES, N.LAUNCHES, MF.LAUNCHES, E.LAUNCHES, X.LAUNCHES, MS.CALLS):
+        for name in table:
+            table[name] = 0
+
+
+SHARDED_RANKS = 4
+SHARDED_COLUMNS = 8
+SHARDED_SEED = 1300
+
+
+def _sharded_inputs(dev, n: int) -> torch.Tensor:
+    """Phase 13's (8, SHARDED_COLUMNS, n) Montgomery Fr stack, the same on
+    every rank and in the parent (one seeded generator on the card)."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+
+    gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED)
+    return _rand_words(FR_SPEC, (SHARDED_COLUMNS, n), gen, dev)
+
+
+def _sharded_primitives(mesh, srs, record=None) -> dict:
+    """Each primitive of parallel/sharded.py at the slice's width (k=17,
+    the extended domain 2^19, SHARDED_COLUMNS columns) against the same
+    function on one device in this rank: equal results, and the time of
+    a second call of each (the first builds the constant tables, under
+    `record()` where given: it starts a recording and returns its stop)."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.ops import ec as E
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+    from webauthn_halo2_tpu_torch.parallel import sharded as S
+    from webauthn_halo2_tpu_torch.plonk import keygen as KG
+    from webauthn_halo2_tpu_torch.plonk.domain import Domain
+
+    a = _sharded_inputs(mesh.device, srs.n)
+    k, ext_k = srs.k, srs.k + 2
+    out = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, time.time() - t0
+
+    for name, sharded, single in (
+            ("ntt", lambda: S.sharded_ntt(mesh, a, k), lambda: N.ntt(FR_SPEC, a, k)),
+            ("intt", lambda: S.sharded_intt(mesh, a, k), lambda: N.intt(FR_SPEC, a, k)),
+            ("coeff_to_extended", lambda: S.sharded_coeff_to_extended(mesh, a, k, ext_k),
+             lambda: Domain(k, ext_k).coeff_to_extended(a)),
+            ("msm", lambda: S.sharded_msm(mesh, srs.g_mono, a[:, 0]),
+             lambda: KG.MSM_ENGINE.msm(E.BN254_CURVE, srs.g_mono, a[:, 0])),
+            ("batch_commit", lambda: S.batch_commit(mesh, srs.g_lag, a),
+             lambda: KG.MSM_ENGINE.msm_batch(E.BN254_CURVE, srs.g_lag, a))):
+        stop = record() if record else None
+        sharded()
+        if stop:
+            stop()
+        single()
+        got, s = timed(sharded)
+        want, one_s = timed(single)
+        equal = torch.equal(got, want) if isinstance(got, torch.Tensor) else got == want
+        out[name] = dict(equal=bool(equal), s=s, one_device_s=one_s)
+        if name == "msm":
+            out[name]["point"] = got
+        del got, want
+    return out
+
+
+def _rank_log(log_dir: str, rank: int) -> None:
+    """A rank's prints (spans, roofline) go to its own file in log_dir."""
+    sys.stdout = sys.stderr = open(os.path.join(log_dir, f"rank{rank}.log"), "w", buffering=1)
+
+
+def _recording(shapes: dict, batches: list):
+    """Record montmul and NTT launch shapes into `shapes` and the v3
+    pipeline's commit batches into `batches`; returns the stop."""
+    stops = (_record_launch_shapes(shapes), _record_window_sums(batches))
+    return lambda: [stop() for stop in stops]
+
+
+def _sharded_rank(rank: int, size: int, log_dir: str, seen_shapes: dict,
+                  seen_sizes: set) -> dict:
+    """One of phase 13's ranks: the primitives, then keygen and a k=17
+    proof of phase 5's signature and rng with WH2_SHARDED=1, the launch
+    counters, ROUTES and COLLECTIVES from zero before keygen (the
+    collectives also read apart for the proof). Rank 0 records the launch
+    shapes and commit batches of the sharded primitives, keygen and the
+    proof, and holds those not in `seen_shapes` and `seen_sizes` against
+    their plain versions."""
+    _rank_log(log_dir, rank)
+    torch.set_num_threads(2)
+    from webauthn_halo2_tpu_torch import api
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.parallel import sharded as S
+    from webauthn_halo2_tpu_torch.plonk.srs import get_srs
+
+    K.build_all()  # the parent's libraries, loaded
+    mesh = S.make_mesh()  # cuda:(rank % cards): cuda:0 for every rank here
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    params = CircuitParams()
+    srs = get_srs(params.degree, device=dev)
+    shapes = {name: [] for name in seen_shapes}
+    batches = []
+    record = (lambda: _recording(shapes, batches)) if rank == 0 else None
+    prims = _sharded_primitives(mesh, srs, record)
+    torch.cuda.empty_cache()
+
+    os.environ["WH2_SHARDED"] = "1"
+    _zero_counts()
+    for table in (S.ROUTES, S.COLLECTIVES):
+        table.update((name, 0) for name in table)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stop = record() if record else None
+    t0 = time.time()
+    pk = api.proving_key(params, device=dev)
+    torch.cuda.synchronize()
+    keygen_s = time.time() - t0
+    keygen_coll = dict(S.COLLECTIVES)
+    S.COLLECTIVES.update((name, 0) for name in S.COLLECTIVES)
+    t0 = time.time()
+    proof = api.generate_proof(*_signed_message(), params=params, device=dev,
+                               rng=_det_rng(b"chip_smoke"))
+    prove_s = time.time() - t0
+    if stop:
+        stop()
+    out = dict(rank=rank, mesh=[mesh.rank, mesh.size, str(dev), mesh.backend],
+               primitives=prims, keygen_s=keygen_s, prove_s=prove_s, proof=proof,
+               routes=dict(S.ROUTES), launches=_counts(),
+               collectives=dict(keygen=keygen_coll, proof=dict(S.COLLECTIVES)),
+               peak_gb=_gb(torch.cuda.max_memory_allocated(dev)),
+               vk=pk.vk.transcript_repr)
+    if rank == 0:
+        out["verified"] = bool(api.verify(proof, params=params, device=dev))
+        del pk
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED + 1)
+        checked = phase_new_launch_shapes(dev, gen, "sharded", seen_shapes, shapes, srs,
+                                          seen_sizes, batches)
+        new = sum(len(set(keys) - set(seen_shapes[name])) for name, keys in shapes.items())
+        out["new_launch_shapes"] = dict(shapes=new, batches=checked - new,
+                                        s=time.time() - t0)
+    return out
+
+
+def _nccl_rank(rank: int, size: int, log_dir: str) -> dict:
+    """Phase 13's one-rank NCCL group: the primitives at D = 1, the card's
+    tensors handed to NCCL as they are."""
+    _rank_log(log_dir, rank)
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.parallel import sharded as S
+    from webauthn_halo2_tpu_torch.plonk.srs import get_srs
+
+    K.build_all()
+    mesh = S.make_mesh()
+    torch.cuda.set_device(mesh.device)
+    srs = get_srs(17, device=mesh.device)
+    return dict(mesh=[mesh.rank, mesh.size, str(mesh.device), mesh.backend],
+                primitives=_sharded_primitives(mesh, srs))
+
+
+def _rank_logs(log_dir: str) -> None:
+    for name in sorted(os.listdir(log_dir)):
+        if name.endswith(".log"):
+            with open(os.path.join(log_dir, name)) as f:
+                tail = f.read()[-3000:]
+            print(f"--- {name} (tail) ---\n{tail}", file=sys.stderr, flush=True)
+
+
+def sharded_group(backend: str, size: int, run_dir: str, dev, srs, proof: bytes,
+                  keygen_s: float, prove_s: float, seen_shapes: dict | None = None,
+                  seen_sizes: set = frozenset()) -> dict:
+    """`size` ranks of `backend` (file rendezvous in run_dir), each through
+    `_sharded_rank`: every primitive equal to one device, the sharded MSM
+    also to the host oracle; every rank's proof equal to `proof`, verified
+    on rank 0, every hooked call sharded (ROUTES) and rows 1-6 launched in
+    each rank; on rank 0 every launch shape and commit batch of the path
+    not in `seen_shapes` (None: none seen) and `seen_sizes` against the
+    plain versions. Any failure of a rank fails the run. Returns the
+    group's numbers, rank 0's launch counts under "launches" and the
+    oracle point under "oracle"."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
+    from webauthn_halo2_tpu_torch.parallel.ranks import run_ranks
+
+    seen = {name: sorted(set(keys)) for name, keys in (seen_shapes or dict(
+        montmul=[], ntt_stage_a=[], ntt_stage_b=[])).items()}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        ranks = run_ranks(_sharded_rank, size, os.path.join(run_dir, backend),
+                          backend=backend, args=(run_dir, seen, set(seen_sizes)),
+                          timeout=600)
+    except Exception as e:  # noqa: BLE001 - every rank failure fails the run
+        _rank_logs(run_dir)
+        fail(f"the sharded ranks failed: {e}")
+    ranks_s = time.time() - t0
+    oracle = _oracle(FR_SPEC.decode(_sharded_inputs(dev, srs.n)[:, 0].cpu().numpy()))
+    cards = torch.cuda.device_count()
+    for r in ranks:
+        bad = [name for name, p in r["primitives"].items() if not p["equal"]]
+        if bad:
+            fail(f"rank {r['rank']}: sharded {bad} differ from one device")
+        if r["primitives"]["msm"].pop("point") != oracle:
+            fail(f"rank {r['rank']}: the sharded MSM differs from the host oracle")
+        want_mesh = [r["rank"], size, f"cuda:{r['rank'] % cards}", backend]
+        if r["mesh"] != want_mesh:
+            fail(f"rank {r['rank']}: mesh {r['mesh']}, not {want_mesh}")
+        if r["proof"] != proof:
+            fail(f"rank {r['rank']}: the sharded proof differs from phase 5's")
+        routes = r["routes"]
+        if (not all(routes[f"{w}_sharded"] for w in ("commits", "l2c", "c2e"))
+                or any(routes[f"{w}_one_device"] for w in ("commits", "l2c", "c2e"))):
+            fail(f"rank {r['rank']}: a hooked call stayed on one device: {routes}")
+        for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior",
+                     "msm_scan", "msm_combine"):
+            if not r["launches"][name]:
+                fail(f"rank {r['rank']}: kernel {name} was never launched on the sharded path")
+        r.pop("proof")
+    if not ranks[0]["verified"] or len({r["vk"] for r in ranks}) != 1:
+        fail("api.verify rejected the sharded proof on rank 0, or the ranks' keys differ")
+    log(f"[sharded] {size} {backend} ranks in {ranks_s:.1f}s: every primitive equals one "
+        f"device, the MSM the oracle; every rank's proof equals phase 5's and verifies; "
+        f"keygen s {[round(r['keygen_s'], 2) for r in ranks]} (one device: {keygen_s:.2f}), "
+        f"proof s {[round(r['prove_s'], 2) for r in ranks]} (one device: {prove_s:.2f}); "
+        "collectives a proof " + json.dumps([r["collectives"]["proof"] for r in ranks])
+        + f"; peak GB {[r['peak_gb'] for r in ranks]}; routes {json.dumps(ranks[0]['routes'])}")
+    new = ranks[0]["new_launch_shapes"]
+    log(f"[sharded] rank 0: {new['shapes']} launch shapes and {new['batches']} commit batches "
+        f"new to this path equal their plain versions ({new['s']:.1f}s)")
+    return dict(ranks=size, backend=backend, columns=SHARDED_COLUMNS, seconds=ranks_s,
+                new_launch_shapes=ranks[0]["new_launch_shapes"],
+                one_device=dict(keygen_s=keygen_s, prove_s=prove_s),
+                per_rank=[{key: r[key] for key in ("rank", "keygen_s", "prove_s", "peak_gb",
+                                                   "collectives", "routes", "primitives")}
+                          for r in ranks],
+                launches=ranks[0]["launches"], oracle=oracle)
+
+
+def phase_sharded(dev, srs, proof: bytes, keygen_s: float, prove_s: float,
+                  seen_shapes: dict, seen_sizes: set) -> dict:
+    """Phase 13: SHARDED_RANKS gloo ranks spawned on the one card
+    (`sharded_group`, its new launch shapes and batches held against
+    `seen_shapes` and `seen_sizes`), then a one-rank NCCL group runs the
+    primitives at D = 1, the card's tensors handed to NCCL; in a new
+    directory under build/, removed at the end."""
+    import tempfile
+
+    from webauthn_halo2_tpu_torch.parallel.ranks import run_ranks
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_sharded_", dir=os.path.join(ROOT, "build"))
+    try:
+        out = sharded_group("gloo", SHARDED_RANKS, run_dir, dev, srs, proof, keygen_s, prove_s,
+                            seen_shapes, seen_sizes)
+        oracle = out.pop("oracle")
+        t0 = time.time()
+        try:
+            nccl = run_ranks(_nccl_rank, 1, os.path.join(run_dir, "nccl"), backend="nccl",
+                             args=(run_dir,), timeout=300)[0]
+        except Exception as e:  # noqa: BLE001 - a failure fails the run
+            _rank_logs(run_dir)
+            fail(f"the one-rank NCCL group failed: {e}")
+        nccl_s = time.time() - t0
+        bad = [name for name, p in nccl["primitives"].items() if not p["equal"]]
+        if bad or nccl["primitives"]["msm"].pop("point") != oracle:
+            fail(f"the one-rank NCCL group's {bad or ['msm']} differ from one device or the oracle")
+        if nccl["mesh"] != [0, 1, "cuda:0", "nccl"]:
+            fail(f"the NCCL mesh is {nccl['mesh']}")
+        log(f"[sharded] one-rank NCCL group in {nccl_s:.1f}s: every primitive equals one "
+            "device")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    out["nccl"] = dict(seconds=nccl_s, primitives=nccl["primitives"])
+    return out
+
+
 COMMIT_BATCH = 9
 
 KERNEL_META = {
@@ -1997,12 +2324,9 @@ def main() -> int:
         from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams
         from webauthn_halo2_tpu_torch.ops import ec as E
         from webauthn_halo2_tpu_torch.ops import kernels as K
-        from webauthn_halo2_tpu_torch.ops import modops as M
         from webauthn_halo2_tpu_torch.ops import msm as MS
         from webauthn_halo2_tpu_torch.ops import msm_fused as MF
         from webauthn_halo2_tpu_torch.ops import msm_v1 as MV
-        from webauthn_halo2_tpu_torch.ops import mxu_mod as X
-        from webauthn_halo2_tpu_torch.ops import ntt as N
         from webauthn_halo2_tpu_torch.plonk import keygen as KG
         from webauthn_halo2_tpu_torch.plonk import prover as PR
         from webauthn_halo2_tpu_torch.plonk.srs import get_srs
@@ -2077,23 +2401,13 @@ def main() -> int:
     batches = []
     stop_recording = _record_window_sums(batches)
 
-    def counts():
-        return {"montmul": M.LAUNCHES["montmul"],
-                "ntt_stage_a": N.LAUNCHES["ntt_stage_a"],
-                "ntt_stage_b": N.LAUNCHES["ntt_stage_b"],
-                **MF.LAUNCHES, **E.LAUNCHES, **X.LAUNCHES,
-                "serial_bucket_sums": MS.CALLS["window_bucket_sum"]}
-
-    def zero_counts():
-        for table in (M.LAUNCHES, N.LAUNCHES, MF.LAUNCHES, E.LAUNCHES, X.LAUNCHES, MS.CALLS):
-            for name in table:
-                table[name] = 0
-
+    counts, zero_counts = _counts, _zero_counts
     zero_counts()
     t0 = time.time()
     pk = api.proving_key(params, device=dev)
     torch.cuda.synchronize()
-    log(f"[keygen] k={params.degree} ECDSA circuit: {time.time() - t0:.1f}s "
+    keygen_s = time.time() - t0
+    log(f"[keygen] k={params.degree} ECDSA circuit: {keygen_s:.1f}s "
         f"vk={pk.vk.transcript_repr:#x} "
         + json.dumps({k: round(v, 3) for k, v in pk.spans.items()}))
 
@@ -2287,7 +2601,13 @@ def main() -> int:
     log(f"[server] done ({time.time() - t12:.1f}s)")
     serving["srs"] = srs_summary
 
-    # 13. counters and the kernels line
+    # 13. four gloo ranks on the card, both hooks on; a one-rank NCCL group
+    t13 = time.time()
+    sharded = phase_sharded(dev, srs, proof, keygen_s, prove_s, seen,
+                            main_sizes | set(gwc_sizes) | {COMMIT_BATCH})
+    log(f"[sharded] done ({time.time() - t13:.1f}s)")
+
+    # 14. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -2304,10 +2624,10 @@ def main() -> int:
     by_path = {"v3": launches, "serial": serial, "v1": v1,
                "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches,
                "es256": es256_launches, "srs": srs_launches, "server": server_launches,
-               "batch": batch_launches}
+               "batch": batch_launches, "sharded": sharded.pop("launches")}
     if srs_launches["montmul"] == 0:
         fail("kernel montmul was never launched on the srs path")
-    for path in ("gwc", "es256", "server", "batch"):
+    for path in ("gwc", "es256", "server", "batch", "sharded"):
         for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
                      "msm_combine"):
             if by_path[path][name] == 0:
@@ -2338,6 +2658,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"es256": es256}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     verification.update({"evm_call_gwc": evm["gwc"]["host_paths"],
                          "es256_verify_proof": es256["verify_host_paths"],
                          **serving["verify_host_paths"]})

@@ -1,7 +1,8 @@
 """The port stands alone, and its entry points default to the card.
 
-An AST scan of every file of webauthn_halo2_tpu_torch/, of chip_smoke.py
-and of the port's scripts (scripts/*_torch_*.py): none imports jax or
+An AST scan of every file of webauthn_halo2_tpu_torch/ (parallel/
+included), of chip_smoke.py and of the port's scripts
+(scripts/*_torch_*.py): none imports jax or
 anything of the JAX package, and no source of the port (.py, .cpp, .cu,
 .cuh) names the JAX package's native libraries. Then each
 public entry point, called without `device`, raises where there is no
@@ -52,7 +53,8 @@ def test_port_has_the_slice_modules():
                 "plonk/mock.py", "circuits/sha256.py", "circuits/es256_circuit.py",
                 "client/webauthn.py", "evm/yulc.py", "chain/abi.py", "chain/contracts.py",
                 "server/bundler.py", "server/app.py", "utils/roofline.py",
-                "utils/host_build.py", "fields/pairing_native.py"):
+                "utils/host_build.py", "fields/pairing_native.py",
+                "parallel/__init__.py", "parallel/sharded.py", "parallel/ranks.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",

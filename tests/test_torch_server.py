@@ -8,8 +8,9 @@ verifier. The port's WebAuthn client gives the JAX client's bytes.
 `generate_proofs_batch` runs on the K=6 toy circuit of
 tests/test_torch_prover.py (the ECDSA circuit's synthesis and key swapped
 out through monkeypatch), each proof equal to one made alone with the same
-rng. Then two threads build the kernel libraries (nvcc, the process and
-the loader faked) and each source is compiled once, and one proving key
+rng. Then two threads, and two processes, build the kernel libraries
+(nvcc, the process and the loader faked) and each source is compiled
+once, and one proving key
 serves download_keys, every manifest path and the bundler's World.
 """
 import json
@@ -278,6 +279,66 @@ def test_kernel_build_compiles_each_source_once_under_threads(tmp_path, monkeypa
     assert sorted(compiled) == sorted(K.SOURCES)
     assert len(loaded) == len(K.SOURCES)
     assert not list(tmp_path.glob("*.tmp"))
+
+
+# One process of the test below: the kernel build with nvcc and the loader
+# faked, started when both processes are ready; prints the libraries loaded.
+_BUILD_IN_A_PROCESS = r"""
+import os, pathlib, sys, time
+sys.path.insert(0, sys.argv[2])
+from webauthn_halo2_tpu_torch.ops import kernels as K
+
+tmp = pathlib.Path(sys.argv[1])
+
+
+class FakeNvcc:
+    def __init__(self, cmd, stdout=None, stderr=None):
+        self.out = pathlib.Path(cmd[cmd.index("-o") + 1])
+        with open(tmp / "compiled", "a") as f:
+            f.write(pathlib.Path(cmd[-1]).stem + "\n")
+        self.t0 = time.time()
+
+    def poll(self):
+        if time.time() - self.t0 < 0.5:  # still compiling: the other process runs meanwhile
+            return None
+        self.out.write_bytes(b"library")
+        return 0
+
+
+def fake_cdll(path):
+    assert pathlib.Path(path).read_bytes() == b"library"
+    return object()
+
+
+K.BUILD_DIR = tmp / "kernels"
+K._nvcc = lambda: "nvcc"
+K.subprocess.Popen = FakeNvcc
+K.ctypes.CDLL = fake_cdll
+(tmp / f"ready.{os.getpid()}").touch()
+while len(list(tmp.glob("ready.*"))) < 2:
+    time.sleep(0.01)
+K.build_all()
+print(len(K._STATE.libs))
+"""
+
+
+def test_kernel_build_compiles_each_source_once_across_processes(tmp_path):
+    """Two processes build the kernel libraries at once (the ranks of a
+    sharded prover; nvcc and the loader faked): the file lock of each
+    library lets one process compile it and the other load its file."""
+    import subprocess
+
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+
+    procs = [subprocess.Popen([sys.executable, "-c", _BUILD_IN_A_PROCESS, str(tmp_path),
+                               str(ROOT)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [err for _, err in outs]
+    assert [out.strip() for out, _ in outs] == [str(len(K.SOURCES))] * 2
+    compiled = (tmp_path / "compiled").read_text().split()
+    assert sorted(compiled) == sorted(K.SOURCES)
+    assert not list((tmp_path / "kernels").glob("*.tmp"))
 
 
 class _FakeKey:

@@ -8,13 +8,16 @@ header (csrc/*.cuh) and of the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as it is. Nothing is built or
 loaded when this module is imported: the first launch builds, under a
 lock, so that threads of one process (a server's requests, the workers
-of a proof batch) compile each source once and load only finished files.
+of a proof batch) compile each source once and load only finished files;
+a file lock a library (`fcntl.flock`) does the same across processes
+(the ranks of a sharded prover, test workers): one nvcc a source.
 
 Every C entry returns `cudaGetLastError()`; `check` raises on anything but 0.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -99,30 +102,45 @@ def _build_all_locked() -> float:
     t0 = time.time()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SOURCES:
-        so = _so_path(name)
-        if so.exists():
-            continue
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        log = open(so.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (so, tmp, log,
-                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
-    errors = []
-    while procs:
-        for name, (so, tmp, log, proc) in list(procs.items()):
-            rc = proc.poll()
-            if rc is None:
+    try:
+        # each missing library under its own file lock, taken in SOURCES
+        # order and held until its nvcc has finished: a process that finds
+        # the lock taken waits, then loads the other's file
+        for name in SOURCES:
+            so = _so_path(name)
+            if so.exists():
                 continue
-            BUILD_SECONDS[name] = time.time() - t0
-            del procs[name]
+            lock = open(BUILD_DIR / f".{name}.lock", "w")
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+            if so.exists():
+                lock.close()
+                continue
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            log = open(so.with_suffix(".log"), "w")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (so, tmp, log, lock,
+                           subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+        errors = []
+        while procs:
+            for name, (so, tmp, log, lock, proc) in list(procs.items()):
+                rc = proc.poll()
+                if rc is None:
+                    continue
+                BUILD_SECONDS[name] = time.time() - t0
+                del procs[name]
+                log.close()
+                if rc != 0:
+                    errors.append(f"{name}: nvcc exit {rc}\n"
+                                  + so.with_suffix(".log").read_text()[-4000:])
+                else:
+                    os.replace(tmp, so)
+                lock.close()
+            time.sleep(0.05)
+    finally:
+        for so, tmp, log, lock, proc in procs.values():  # only after an exception
+            proc.kill()
             log.close()
-            if rc != 0:
-                errors.append(f"{name}: nvcc exit {rc}\n"
-                              + so.with_suffix(".log").read_text()[-4000:])
-            else:
-                os.replace(tmp, so)
-        time.sleep(0.05)
+            lock.close()
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     for name in SOURCES:

@@ -48,12 +48,24 @@ def to_mont_split(x: torch.Tensor, na: int):
 
 
 def batched_l2c(k: int, stack: torch.Tensor) -> torch.Tensor:
-    """Lagrange -> coefficients for every column of an (8, B, n) stack."""
+    """Lagrange -> coefficients for every column of an (8, B, n) stack;
+    over the ranks under WH2_SHARDED=1 (parallel/sharded.py)."""
+    from ..parallel import sharded as S
+
+    mesh = S.ntt_mesh("l2c", k, stack.device)
+    if mesh is not None:
+        return S.sharded_intt(mesh, stack, k)
     return N.intt(SPEC, stack, k)
 
 
 def batched_c2e(k: int, ext_k: int, stack: torch.Tensor) -> torch.Tensor:
-    """Coefficients -> extended coset evaluations, (8, B, n) -> (8, B, ext_n)."""
+    """Coefficients -> extended coset evaluations, (8, B, n) -> (8, B, ext_n);
+    over the ranks under WH2_SHARDED=1 (parallel/sharded.py)."""
+    from ..parallel import sharded as S
+
+    mesh = S.ntt_mesh("c2e", ext_k, stack.device)
+    if mesh is not None:
+        return S.sharded_coeff_to_extended(mesh, stack, k, ext_k)
     return Domain(k, ext_k).coeff_to_extended(stack)
 
 

@@ -61,10 +61,17 @@ MSM_ENGINE = msm_fused
 
 
 def commit_lagrange_batch(srs: SRS, cols) -> list:
-    """Commit many Lagrange columns (list of (8, n) or an (8, B, n) stack)."""
+    """Commit many Lagrange columns (list of (8, n) or an (8, B, n) stack).
+    Under WH2_SHARDED=1 in a group of two or more ranks, the point axis of
+    each commit is split over the ranks (parallel/sharded.py)."""
+    from ..parallel import sharded as S
+
     stack, B = _batch_input(cols)
     if not B:
         return []
+    mesh = S.commit_mesh(stack.device)
+    if mesh is not None:
+        return S.sharded_msm_batch(mesh, srs.g_lag, stack, engine=MSM_ENGINE)
     return MSM_ENGINE.msm_batch(E.BN254_CURVE, srs.g_lag, stack)
 
 
