@@ -147,16 +147,35 @@ Phases, one or more lines each:
      (`phase_new_launch_shapes`). Then a one-rank NCCL group runs the
      primitives at D = 1, the card's tensors handed to NCCL. Any rank's
      failure fails the run;
- 14. every kernel of a path launched during that path's run (each run with
+ 14. data-parallel proving (webauthn_halo2_tpu_torch/parallel/batch.py,
+     the port of the JAX system's scripts/launch_multihost.py), untraced:
+     four fresh ECDSA-P256 signatures at k=17 proved in this process by
+     api.generate_proofs_batch with four fixed deterministic rngs, then two
+     gloo ranks spawned on the one card (a new directory under build/,
+     removed at the end; each rank's log there, shown if it fails), each
+     loading phase 9's key file and proving its round-robin two of the
+     same four with the same rngs through batch.prove_shard, the launch
+     counters from zero: every index's bytes equal the one-process proof,
+     the ranks' vk digests are one and the key's, every proof verifies
+     and a flipped byte does not, rows 1-6 launched in each rank; rank 0
+     holds every launch shape and commit batch the earlier phases did not
+     check against the plain versions (`phase_new_launch_shapes`); each
+     rank's and the one process's proofs/s and peak memory. A line says
+     whether api.generate_proof(device="cuda:1") from this process
+     (current device 0) gave phase 5's bytes, or that it was skipped for
+     want of a second card;
+ 15. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
      the serial bucket sum did not run on the v3 route, rows 1-6 ran on
-     the GWC, ES256, server, batch and sharded paths (the sharded path's
-     counts are rank 0's), and the montmul on the SRS path; a `kernels`
+     the GWC, ES256, server, batch, sharded and data-parallel paths (the
+     sharded and data-parallel paths' counts are rank 0's), and the
+     montmul on the SRS path; a `kernels`
      JSON line with launches, times, bounds, the plain versions' times,
      for the MSM kernels their times and bounds over the proof's batches
      (the combine's also per batch), and for rows 1-3 the proof's launch
-     shapes; then the `es256`, `serving` and `sharded` lines, and a line
+     shapes; then the `es256`, `serving`, `sharded` and `data_parallel`
+     lines, and a line
      with the card's name and power limit, the verification times on both
      host paths, the untraced batch and ES256's windowed quotient.
 """
@@ -2286,6 +2305,170 @@ def phase_sharded(dev, srs, proof: bytes, keygen_s: float, prove_s: float,
     return out
 
 
+DP_RANKS = 2
+DP_BATCH = 4
+
+
+def _dp_requests() -> list:
+    """Phase 14's four signatures (fresh keys and messages)."""
+    return [_signed_request(14000 + i, 14100 + i) for i in range(DP_BATCH)]
+
+
+def _dp_seed(i: int) -> bytes:
+    """The prover rng's seed of phase 14's proof i."""
+    return b"data parallel %d" % i
+
+
+def _dp_rank(rank: int, size: int, log_dir: str, key_dir: str, seen_shapes: dict,
+             seen_sizes: set) -> dict:
+    """One of phase 14's ranks: the key from phase 9's file, then its
+    round-robin share of the four signatures through batch.prove_shard,
+    the launch counters from zero. The rank's thread keeps its current
+    device (card 0): every launch goes to the key's card by its tensors.
+    Rank 0 records the launch shapes and commit batches of its proofs and
+    holds those not in `seen_shapes` and `seen_sizes` against their plain
+    versions."""
+    _rank_log(log_dir, rank)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    from webauthn_halo2_tpu_torch import api
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams
+    from webauthn_halo2_tpu_torch.ops import kernels as K
+    from webauthn_halo2_tpu_torch.parallel import batch as B
+    from webauthn_halo2_tpu_torch.parallel import sharded as S
+    from webauthn_halo2_tpu_torch.plonk.srs import get_srs
+
+    K.build_all()  # the parent's libraries, loaded
+    dev = S.make_mesh().device  # cuda:(rank % cards): cuda:0 for both ranks here
+    params = CircuitParams()
+    t0 = time.time()
+    pk = api.proving_key(params, device=dev, cache_dir=key_dir)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    witnesses = api.request_witnesses(_dp_requests(), params)
+    shapes = {name: [] for name in seen_shapes}
+    batches = []
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    stop = _recording(shapes, batches) if rank == 0 else None
+    shard = B.prove_shard(pk, witnesses, [B.seeded_rng(_dp_seed(i)) for i in range(DP_BATCH)])
+    if stop:
+        stop()
+    out = dict(rank=rank, device=str(dev), load_s=load_s, proofs=shard.proofs,
+               records=shard.ranks, launches=_counts(),
+               peak_gb=_gb(torch.cuda.max_memory_allocated(dev)),
+               thread_device=torch.cuda.current_device())
+    if rank == 0:
+        t0 = time.time()
+        gen = torch.Generator(device=dev).manual_seed(SHARDED_SEED + 14)
+        srs = get_srs(params.degree, device=dev)
+        checked = phase_new_launch_shapes(dev, gen, "dp", seen_shapes, shapes, srs,
+                                          seen_sizes, batches)
+        new = sum(len(set(keys) - set(seen_shapes[name])) for name, keys in shapes.items())
+        out["new_launch_shapes"] = dict(shapes=new, batches=checked - new,
+                                        s=time.time() - t0)
+    return out
+
+
+def phase_data_parallel(api, dev, key_dir: str, signed: tuple, proof: bytes,
+                        seen_shapes: dict, seen_sizes: set) -> dict:
+    """Phase 14, untraced: the four signatures proved in this process by
+    api.generate_proofs_batch, then by DP_RANKS gloo ranks sharing the card
+    (`_dp_rank`, phase 9's key file in `key_dir`), in a new directory
+    under build/, removed at the end. Returns the numbers, rank 0's launch
+    counts under "launches"."""
+    import tempfile
+
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import CircuitParams
+    from webauthn_halo2_tpu_torch.parallel.ranks import run_ranks
+
+    params = CircuitParams()
+    reqs = _dp_requests()
+    seen = {name: sorted(set(keys)) for name, keys in seen_shapes.items()}
+    trace = os.environ.pop("WH2_TRACE", None)  # the ranks inherit the environment
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=os.path.join(ROOT, "build"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.time()
+        alone = api.generate_proofs_batch(reqs, params=params, device=dev,
+                                          rngs=[_det_rng(_dp_seed(i)) for i in range(DP_BATCH)])
+        torch.cuda.synchronize()
+        one_s = time.time() - t0
+        one_peak = _gb(torch.cuda.max_memory_allocated(dev))
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        try:
+            ranks = run_ranks(_dp_rank, DP_RANKS, os.path.join(run_dir, "gloo"),
+                              args=(run_dir, key_dir, seen, set(seen_sizes)), timeout=600)
+        except Exception as e:  # noqa: BLE001 - every rank failure fails the run
+            _rank_logs(run_dir)
+            fail(f"the data-parallel ranks failed: {e}")
+        ranks_s = time.time() - t0
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        if trace is not None:
+            os.environ["WH2_TRACE"] = trace
+    vk = api.proving_key(params, device=dev).vk.transcript_repr
+    proved = {}
+    for r in ranks:
+        records = r["records"]
+        if len({rec["vk"] for rec in records}) != 1 or records[0]["vk"] != vk:
+            fail(f"rank {r['rank']}: the ranks' vk digests differ from each other or the key's")
+        if r["device"] != "cuda:0" or r["thread_device"] != 0:
+            fail(f"rank {r['rank']} proved on {r['device']}, its thread on {r['thread_device']}")
+        for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
+                     "msm_combine"):
+            if not r["launches"][name]:
+                fail(f"rank {r['rank']}: kernel {name} was never launched on the dp path")
+        proved.update(r["proofs"])
+    if sorted(proved) != list(range(DP_BATCH)):
+        fail(f"the ranks proved {sorted(proved)}, not each of 0..{DP_BATCH - 1} once")
+    for i, p in proved.items():
+        if p != alone[i]:
+            fail(f"index {i}: the rank's proof differs from the one-process proof")
+        if not api.verify(p, params=params, device=dev):
+            fail(f"index {i}: api.verify rejected the rank's proof")
+        if api.verify(_flip(p), params=params, device=dev):
+            fail(f"index {i}: api.verify accepted a flipped proof")
+    records = ranks[0]["records"]
+    per_rank = [dict(rank=rec["rank"], indices=rec["indices"], prove_s=rec["prove_s"],
+                     verify_s=rec["verify_s"],
+                     proofs_per_s=len(rec["indices"]) / rec["prove_s"],
+                     peak_gb=r["peak_gb"], load_s=r["load_s"])
+                for rec, r in zip(records, ranks)]
+    out = dict(ranks=DP_RANKS, batch=DP_BATCH, backend="gloo", untraced=True,
+               one_process=dict(s=one_s, proofs_per_s=DP_BATCH / one_s, peak_gb=one_peak),
+               proofs_per_s=DP_BATCH / max(rec["prove_s"] for rec in records),
+               ranks_s=ranks_s, per_rank=per_rank,
+               new_launch_shapes=ranks[0]["new_launch_shapes"], launches=ranks[0]["launches"])
+    new = out["new_launch_shapes"]
+    log(f"[dp] {DP_RANKS} gloo ranks on the card, each its round robin of {DP_BATCH} "
+        f"signatures: every index equals the one-process proof, one vk digest "
+        f"({vk:#x}), every proof verifies and a flipped byte does not; proofs/s "
+        f"{out['proofs_per_s']:.4f} (ranks: "
+        f"{[round(p['proofs_per_s'], 4) for p in per_rank]}) against "
+        f"{out['one_process']['proofs_per_s']:.4f} in one process ({one_s:.2f}s); peak GB "
+        f"{[p['peak_gb'] for p in per_rank]} (one process {one_peak}); the ranks "
+        f"{ranks_s:.1f}s with the spawn; rank 0: {new['shapes']} launch shapes and "
+        f"{new['batches']} commit batches new to this path equal their plain versions "
+        f"({new['s']:.1f}s)")
+    if torch.cuda.device_count() < 2:
+        out["second_card"] = "skipped: one card"
+        log("[dp] api.generate_proof(device=\"cuda:1\") from a thread on cuda:0: skipped "
+            "for want of a second card (scripts/launch_multihost_torch.py checks it on "
+            "four)")
+    else:
+        other = api.generate_proof(*signed, params=params, device="cuda:1",
+                                   rng=_det_rng(b"chip_smoke"))
+        out["second_card"] = dict(equal=other == proof,
+                                  current_device=torch.cuda.current_device())
+        log(f"[dp] api.generate_proof(device=\"cuda:1\") from a thread on cuda:0: "
+            f"{json.dumps(out['second_card'])}")
+        if other != proof or torch.cuda.current_device() != 0:
+            fail("the proof on cuda:1 differs from phase 5's, or moved the thread's device")
+    return out
+
+
 COMMIT_BATCH = 9
 
 KERNEL_META = {
@@ -2339,7 +2522,7 @@ def main() -> int:
     # the phases read the prover's and keygen's spans, which only a traced
     # run records (phase 12 times its batch untraced)
     os.environ.setdefault("WH2_TRACE", "1")
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())  # as the port names a card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -2576,7 +2759,6 @@ def main() -> int:
     log(f"[shplonk-keccak] {len(shk)} bytes in {shk_s:.1f}s, verify_evm accepted it")
     #    the verifiers in the port's EVM
     evm = phase_verifiers(api, key_dir, vk_path, dev, {"gwc": gwc, "shplonk": shk})
-    shutil.rmtree(key_dir)
     precompiles = _precompile_seconds(srs)
     log(f"[onchain] done ({time.time() - t9:.1f}s): " + json.dumps(dict(
         gwc_proof_s=gwc_s, gwc_bytes=len(gwc), shplonk_keccak_s=shk_s,
@@ -2607,7 +2789,17 @@ def main() -> int:
                             main_sizes | set(gwc_sizes) | {COMMIT_BATCH})
     log(f"[sharded] done ({time.time() - t13:.1f}s)")
 
-    # 14. counters and the kernels line
+    # 14. data-parallel proving: two gloo ranks on the card, phase 9's key file
+    t14 = time.time()
+    try:
+        data_parallel = phase_data_parallel(api, dev, key_dir, signed, proof, seen,
+                                            main_sizes | set(gwc_sizes) | {COMMIT_BATCH})
+    finally:
+        shutil.rmtree(key_dir)
+    data_parallel["seconds"] = time.time() - t14
+    log(f"[dp] done ({data_parallel['seconds']:.1f}s)")
+
+    # 15. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -2624,10 +2816,11 @@ def main() -> int:
     by_path = {"v3": launches, "serial": serial, "v1": v1,
                "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches,
                "es256": es256_launches, "srs": srs_launches, "server": server_launches,
-               "batch": batch_launches, "sharded": sharded.pop("launches")}
+               "batch": batch_launches, "sharded": sharded.pop("launches"),
+               "dp": data_parallel.pop("launches")}
     if srs_launches["montmul"] == 0:
         fail("kernel montmul was never launched on the srs path")
-    for path in ("gwc", "es256", "server", "batch", "sharded"):
+    for path in ("gwc", "es256", "server", "batch", "sharded", "dp"):
         for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
                      "msm_combine"):
             if by_path[path][name] == 0:
@@ -2659,6 +2852,7 @@ def main() -> int:
     print(json.dumps({"es256": es256}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"data_parallel": data_parallel}), flush=True)
     verification.update({"evm_call_gwc": evm["gwc"]["host_paths"],
                          "es256_verify_proof": es256["verify_host_paths"],
                          **serving["verify_host_paths"]})

@@ -2,7 +2,7 @@
 
 An AST scan of every file of webauthn_halo2_tpu_torch/ (parallel/
 included), of chip_smoke.py and of the port's scripts
-(scripts/*_torch_*.py): none imports jax or
+(scripts/*_torch_*.py and scripts/*_torch.py): none imports jax or
 anything of the JAX package, and no source of the port (.py, .cpp, .cu,
 .cuh) names the JAX package's native libraries. Then each
 public entry point, called without `device`, raises where there is no
@@ -37,7 +37,8 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 def _port_files():
     return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "scripts").glob("*_torch_*.py")))
+            + sorted((ROOT / "scripts").glob("*_torch_*.py"))
+            + sorted((ROOT / "scripts").glob("*_torch.py")))
 
 
 def test_port_has_the_slice_modules():
@@ -54,12 +55,15 @@ def test_port_has_the_slice_modules():
                 "client/webauthn.py", "evm/yulc.py", "chain/abi.py", "chain/contracts.py",
                 "server/bundler.py", "server/app.py", "utils/roofline.py",
                 "utils/host_build.py", "fields/pairing_native.py",
-                "parallel/__init__.py", "parallel/sharded.py", "parallel/ranks.py"):
+                "parallel/__init__.py", "parallel/sharded.py", "parallel/ranks.py",
+                "parallel/batch.py"):
         assert mod in names, mod
     assert {p.name for p in (PORT / "csrc").iterdir()} >= {
         "field.cuh", "ec.cuh", "montmul.cu", "ntt.cu", "msm.cu", "combine.cu", "ec.cu",
         "mxu.cu", "host"}
     assert {p.name for p in (PORT / "csrc" / "host").iterdir()} >= {"pairing.cpp", "hashing.cpp"}
+    scripts = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {"scripts/launch_multihost_torch.py", "scripts/sharded_torch_smoke.py"} <= scripts
 
 
 def _port_sources():

@@ -260,7 +260,10 @@ def prove_batch(pk: ProvingKey, witnesses: list, scheme: str = "shplonk",
     a proof waits only for its own stream, so one prover's host work can
     run while the other's kernels occupy the card. The provers share the
     launch counters and, under WH2_TRACE, `prover.LAST_SPANS`, which are
-    then the batch's and not one proof's."""
+    then the batch's and not one proof's. Every worker thread makes the
+    key's card its current device as it starts (torch keeps a current
+    device a thread, and a new thread starts on card 0), so the whole
+    batch runs on `pk.device`, whichever card the caller's thread is on."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -277,7 +280,12 @@ def prove_batch(pk: ProvingKey, witnesses: list, scheme: str = "shplonk",
     free = list(_prover_streams(dev)) if origin is not None else []
     worker = threading.local()
 
+    def on_key_card():  # once per worker thread
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+
     def take_stream():  # once per prover thread
+        on_key_card()
         if free:
             worker.stream = free.pop()
 
@@ -291,7 +299,7 @@ def prove_batch(pk: ProvingKey, witnesses: list, scheme: str = "shplonk",
             return create_proof(pk, advice, instances, rng=rng, device=dev,
                                 **_opening(scheme))
 
-    with ThreadPoolExecutor(max_workers=1) as wpool, \
+    with ThreadPoolExecutor(max_workers=1, initializer=on_key_card) as wpool, \
             ThreadPoolExecutor(max_workers=_PROVERS, initializer=take_stream) as ppool:
         wfuts = [wpool.submit(w) for w in witnesses]
         pfuts = [ppool.submit(prove, f.result(), rng) for f, rng in zip(wfuts, rngs)]
@@ -314,9 +322,14 @@ def generate_proofs_batch(
     card. scheme="shplonk": SHPLONK over Blake2b; "gwc": GWC over Keccak."""
     params = params or _load_params(proving_key_path)
     pk = _keys(params, proving_key_path, device)
-    circuit = ECDSACircuit(params)
-    witnesses = [
-        functools.partial(_witness, circuit, req["r"], req["s"], req["pubkey_x"],
-                          req["pubkey_y"], req["msghash"])
-        for req in requests]
-    return prove_batch(pk, witnesses, scheme, rngs)
+    return prove_batch(pk, request_witnesses(requests, params), scheme, rngs)
+
+
+def request_witnesses(requests: list[dict], params: CircuitParams | None = None) -> list:
+    """The witnesses of `prove_batch` for ProveRequestBody-style requests
+    ({r, s, pubkey_x, pubkey_y, msghash} as LE byte lists): callables, each
+    returning (advice, instances) of the ECDSA circuit at `params`."""
+    circuit = ECDSACircuit(params or CircuitParams())
+    return [functools.partial(_witness, circuit, req["r"], req["s"], req["pubkey_x"],
+                              req["pubkey_y"], req["msghash"])
+            for req in requests]

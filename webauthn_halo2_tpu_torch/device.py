@@ -1,10 +1,16 @@
 """Where the port's entry points run.
 
-Every public entry point takes `device=None`. None means the first CUDA
-card, and raises when there is none: only an explicit `device="cpu"` runs
-on the CPU, where every kernel wrapper takes its plain PyTorch version.
-Constant tensors (twiddles, field constants) are kept per device here,
-and the tracing switch and stream fence that the spans share.
+Every public entry point takes `device=None`. None, like "cuda", means
+the calling thread's current CUDA card (card 0 unless
+`torch.cuda.set_device` chose another), and raises when there is none:
+only an explicit `device="cpu"` runs on the CPU, where every kernel
+wrapper takes its plain PyTorch version. `resolve` always names the card
+by its index, so a key, a stream or a constant made for "cuda" is the
+same as one made for "cuda:0", and work handed to another thread stays on
+its card. Each kernel wrapper launches on the card of its tensors, not on
+the thread's current one (ops/kernels.on_card). Constant tensors
+(twiddles, field constants) are kept per device here, and the tracing
+switch and stream fence that the spans share.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ def cached(key, make, device, dtype=None) -> torch.Tensor:
     so constants used inside the prover's loops must not be remade. On a
     card the copy is finished before the tensor is kept, because provers
     on other streams read it too."""
+    device = resolve(device)
     ck = (key, str(device), dtype)
     t = _CACHE.get(ck)
     if t is None:
@@ -44,9 +51,13 @@ def fence(device: torch.device) -> None:
 
 
 def resolve(device=None) -> torch.device:
+    """The device an entry point runs on, a card always with its index."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

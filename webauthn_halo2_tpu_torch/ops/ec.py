@@ -156,22 +156,22 @@ def add_unsafe_cuda(curve: CurveSpec, p: JPoint, q: JPoint) -> JPoint:
     """The fused add of csrc/ec.cu on CUDA tensors: the six coordinates
     broadcast to one (8, *batch) shape, which the kernel walks flattened."""
     coords = (*p, *q)
+    dev = K.card_of("the fused EC add", *coords)
     for t in coords:
-        if t.device.type != "cuda":
-            raise ValueError(f"the fused EC add needs CUDA tensors, got {t.device}")
         if t.dtype != torch.int32 or t.shape[0] != W:
             raise TypeError("the fused EC add takes (8, *batch) int32 tensors")
     shape = torch.broadcast_shapes(*(t.shape for t in coords))
     ins = [t.expand(shape).contiguous() for t in coords]
-    out = JPoint(*(torch.empty(shape, dtype=torch.int32, device=p.x.device)
+    out = JPoint(*(torch.empty(shape, dtype=torch.int32, device=dev)
                    for _ in range(3)))
     n = out.x.numel() // W
     if n == 0:
         return out
     f = curve.field
-    rc = K.lib("ec").wh2_ec_add_unsafe(
-        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n,
-        K.modulus_words(f), f.n0, K.stream_ptr(p.x.device))
+    with K.on_card(dev) as stream:
+        rc = K.lib("ec").wh2_ec_add_unsafe(
+            *(t.data_ptr() for t in ins), *(t.data_ptr() for t in out), n,
+            K.modulus_words(f), f.n0, stream)
     K.check(rc, "fused EC add kernel")
     LAUNCHES["ec_add_unsafe"] += 1
     return out

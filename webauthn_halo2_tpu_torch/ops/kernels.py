@@ -13,9 +13,16 @@ a file lock a library (`fcntl.flock`) does the same across processes
 (the ranks of a sharded prover, test workers): one nvcc a source.
 
 Every C entry returns `cudaGetLastError()`; `check` raises on anything but 0.
+The C entries set kernel attributes, read device properties and launch on
+the CUDA runtime's current device, so every wrapper launches inside
+`on_card(card_of(...))`: the card that holds its tensors is made current
+for the length of the call, whatever the calling thread's current device
+(torch keeps one a thread, and a new thread starts on card 0). Tensors on
+two cards, or not on a card, raise before anything is launched.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -168,6 +175,36 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def card_of(what: str, *tensors):
+    """The one CUDA device that holds every tensor of a launch; raises
+    ValueError when one lies on the CPU or on another card."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{what} needs CUDA tensors on one card, got "
+                         f"{sorted(str(d) for d in devices)}")
+    return devices.pop()
+
+
+@contextlib.contextmanager
+def on_card(device):
+    """Make `device` (a CUDA device with its index, as `card_of` gives it)
+    the calling thread's current device for the length of a C entry's call,
+    and yield the handle of the thread's current stream on it; the thread's
+    own current device is restored after."""
+    import torch
+
+    if device.type != "cuda" or device.index is None:
+        raise ValueError(f"a kernel launches on a CUDA device with an index, not {device}")
+    previous = torch.cuda.current_device()
+    if previous != device.index:
+        torch.cuda.set_device(device.index)
+    try:
+        yield stream_ptr(device)
+    finally:
+        if previous != device.index:
+            torch.cuda.set_device(previous)
 
 
 def _words(arr) -> ctypes.Array:

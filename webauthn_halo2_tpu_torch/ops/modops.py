@@ -169,23 +169,23 @@ def _kernel_operand(x: torch.Tensor, batch_shape) -> tuple[torch.Tensor, int, in
 
 def montmul_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch csrc/montmul.cu on CUDA tensors (broadcasting like torch)."""
-    if a.device.type != "cuda" or b.device.type != "cuda":
-        raise ValueError("montmul_cuda needs CUDA tensors")
+    dev = K.card_of("montmul_cuda", a, b)
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError("montmul takes int32 word tensors")
     if a.shape[0] != W or b.shape[0] != W:
         raise ValueError(f"montmul takes (8, *batch) tensors, got {tuple(a.shape)}, {tuple(b.shape)}")
     shape = torch.broadcast_shapes(a.shape, b.shape)
     batch = shape[1:]
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    out = torch.empty(shape, dtype=torch.int32, device=dev)
     n = out.numel() // W
     if n == 0:
         return out
     a_, a_ls, a_bc = _kernel_operand(a, batch)
     b_, b_ls, b_bc = _kernel_operand(b, batch)
-    rc = K.lib("montmul").wh2_montmul(
-        a_.data_ptr(), a_ls, a_bc, b_.data_ptr(), b_ls, b_bc, out.data_ptr(),
-        n, K.modulus_words(spec), spec.n0, K.stream_ptr(a.device))
+    with K.on_card(dev) as stream:
+        rc = K.lib("montmul").wh2_montmul(
+            a_.data_ptr(), a_ls, a_bc, b_.data_ptr(), b_ls, b_bc, out.data_ptr(),
+            n, K.modulus_words(spec), spec.n0, stream)
     K.check(rc, "montmul kernel")
     LAUNCHES["montmul"] += 1
     return out

@@ -108,12 +108,14 @@ def sorted_stream(digits: torch.Tensor, lanes: int):
     return step_major(key >> logn), step_major(key & ((1 << logn) - 1))
 
 
-def _check_cuda(name: str, *tensors) -> None:
+def _check_cuda(name: str, *tensors) -> torch.device:
+    """The one card of `tensors` (kernels.card_of), which must be
+    contiguous int32."""
+    dev = K.card_of(name, *tensors)
     for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} needs CUDA tensors, got {t.device}")
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name} takes contiguous int32 tensors")
+    return dev
 
 
 # --- interior: run accumulation over the sorted stream ------------------
@@ -156,9 +158,8 @@ def interior_cuda(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
     `interior_plain`. The point-major copy of the bases is made here, at
     each launch: one transposing copy of 8 MB at n = 2^17, held by no
     cache."""
-    _check_cuda("msm interior", px, py, sdig, order)
+    dev = _check_cuda("msm interior", px, py, sdig, order)
     R, S, Kl = sdig.shape
-    dev = px.device
     pts = point_major(px, py)
     inf = E.infinity((R, nb), curve, dev)
     buckets = JPoint(*(c.contiguous() for c in inf))
@@ -166,11 +167,11 @@ def interior_cuda(curve: CurveSpec, px: torch.Tensor, py: torch.Tensor,
                    for _ in range(3)))
     seg = torch.empty((R, 2 * Kl), dtype=torch.int32, device=dev)
     f = curve.field
-    rc = K.lib("msm").wh2_msm_interior(
-        pts.data_ptr(), sdig.data_ptr(), order.data_ptr(), R, S, Kl, nb,
-        *(c.data_ptr() for c in buckets), *(c.data_ptr() for c in bnd),
-        seg.data_ptr(), K.modulus_words(f), f.n0, K.one_words(f),
-        K.stream_ptr(dev))
+    with K.on_card(dev) as stream:
+        rc = K.lib("msm").wh2_msm_interior(
+            pts.data_ptr(), sdig.data_ptr(), order.data_ptr(), R, S, Kl, nb,
+            *(c.data_ptr() for c in buckets), *(c.data_ptr() for c in bnd),
+            seg.data_ptr(), K.modulus_words(f), f.n0, K.one_words(f), stream)
     K.check(rc, "msm interior kernel")
     LAUNCHES["msm_interior"] += 1
     return buckets, bnd, seg
@@ -270,16 +271,17 @@ def scan_cuda(curve: CurveSpec, bnd: JPoint, seg: torch.Tensor) -> JPoint:
     digits: the tile kernel, and the join kernel where a row has more than
     one tile, each launch counted. The same tails as `scan_plain`."""
     bnd = JPoint(*(c.contiguous() for c in bnd))
-    _check_cuda("msm scan", *bnd, seg)
+    dev = _check_cuda("msm scan", *bnd, seg)
     R, m = seg.shape
     tiles = -(-m // SCAN_TILE)
     out = JPoint(*(torch.empty_like(c) for c in bnd))
-    head_tail = torch.empty((R, tiles), dtype=torch.int32, device=seg.device)
+    head_tail = torch.empty((R, tiles), dtype=torch.int32, device=dev)
     f = curve.field
-    rc = K.lib("msm").wh2_msm_scan(
-        *(c.data_ptr() for c in bnd), *(c.data_ptr() for c in out),
-        seg.data_ptr(), head_tail.data_ptr(), R, m, SCAN_CHUNK, SCAN_THREADS,
-        K.modulus_words(f), f.n0, K.one_words(f), K.stream_ptr(seg.device))
+    with K.on_card(dev) as stream:
+        rc = K.lib("msm").wh2_msm_scan(
+            *(c.data_ptr() for c in bnd), *(c.data_ptr() for c in out),
+            seg.data_ptr(), head_tail.data_ptr(), R, m, SCAN_CHUNK, SCAN_THREADS,
+            K.modulus_words(f), f.n0, K.one_words(f), stream)
     K.check(rc, "msm scan kernels")
     LAUNCHES["msm_scan"] += 1 + (tiles > 1)
     return out
@@ -396,22 +398,22 @@ def combine_cuda(curve: CurveSpec, buckets: JPoint) -> JPoint:
     reduction: two launches, one wrapper call counted): buckets (8, R, nb)
     -> (8, R)."""
     buckets = JPoint(*(c.contiguous() for c in buckets))
-    _check_cuda("msm combine", *buckets)
+    dev = _check_cuda("msm combine", *buckets)
     R, nb = buckets.x.shape[1:]
     G, _ = _combine_shape(nb)
     P, _ = _row_shape(G)
-    dev = buckets.x.device
     out = JPoint(*(torch.empty((W, R), dtype=torch.int32, device=dev)
                    for _ in range(3)))
     part = torch.empty((6, W, R * G), dtype=torch.int32, device=dev)
     f = curve.field
     lib = K.lib("combine")
-    consts = (K.modulus_words(f), f.n0, K.one_words(f), K.stream_ptr(dev))
-    rc = lib.wh2_msm_combine_chunks(*(c.data_ptr() for c in buckets),
-                                    part.data_ptr(), R, nb, G, *consts)
-    K.check(rc, "msm combine chunk kernel")
-    rc = lib.wh2_msm_combine_rows(part.data_ptr(), *(c.data_ptr() for c in out),
-                                  R, nb, G, P, *consts)
+    with K.on_card(dev) as stream:
+        consts = (K.modulus_words(f), f.n0, K.one_words(f), stream)
+        rc = lib.wh2_msm_combine_chunks(*(c.data_ptr() for c in buckets),
+                                        part.data_ptr(), R, nb, G, *consts)
+        K.check(rc, "msm combine chunk kernel")
+        rc = lib.wh2_msm_combine_rows(part.data_ptr(), *(c.data_ptr() for c in out),
+                                      R, nb, G, P, *consts)
     K.check(rc, "msm combine row kernel")
     LAUNCHES["msm_combine"] += 1
     return out

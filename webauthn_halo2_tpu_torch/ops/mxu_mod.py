@@ -447,9 +447,8 @@ def mxu_montmul_rows_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) ->
 
 def mxu_montmul_rows_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """csrc/mxu.cu on CUDA tensors: (8, M) words in, (8, M) words out."""
+    dev = K.card_of("the int8 montmul kernel", a, b)
     for t in (a, b):
-        if t.device.type != "cuda":
-            raise ValueError(f"the int8 montmul kernel needs CUDA tensors, got {t.device}")
         if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != W:
             raise TypeError("the int8 montmul kernel takes (8, M) int32 tensors")
     if a.shape != b.shape:
@@ -459,13 +458,13 @@ def mxu_montmul_rows_cuda(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> 
     out = torch.empty_like(a)
     if M_ == 0:
         return out
-    dev = a.device
     image = cached(("mxu_image", id(spec)), lambda: kernel_image(spec).view(np.int32),
                    dev, torch.int32)
     scalars = (K._U32 * 7)(*consts(spec).scalars())
-    rc = K.lib("mxu").wh2_mxu_montmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), M_, image.data_ptr(),
-        K.modulus_words(spec), scalars, K.stream_ptr(dev))
+    with K.on_card(dev) as stream:
+        rc = K.lib("mxu").wh2_mxu_montmul(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), M_, image.data_ptr(),
+            K.modulus_words(spec), scalars, stream)
     K.check(rc, "int8 montmul kernel")
     LAUNCHES["mxu_montmul"] += 1
     return out
@@ -477,14 +476,14 @@ def mma_tile(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     register chain assume: a (16, 32) times b (8, 32) transposed -> (16, 8)
     int32. A check of the fragment layouts against a host product; no path
     runs it."""
-    if a.device.type != "cuda" or b.device.type != "cuda":
-        raise ValueError("mma_tile needs CUDA tensors")
+    dev = K.card_of("mma_tile", a, b)
     if a.shape != (16, 32) or b.shape != (8, 32) or a.dtype != torch.uint8 or b.dtype != torch.uint8:
         raise TypeError("mma_tile takes uint8 tensors of (16, 32) and (8, 32)")
     a, b = a.contiguous(), b.contiguous()
-    out = torch.empty((16, 8), dtype=torch.int32, device=a.device)
-    K.check(K.lib("mxu").wh2_mma_tile(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                      K.stream_ptr(a.device)), "mma tile kernel")
+    out = torch.empty((16, 8), dtype=torch.int32, device=dev)
+    with K.on_card(dev) as stream:
+        rc = K.lib("mxu").wh2_mma_tile(a.data_ptr(), b.data_ptr(), out.data_ptr(), stream)
+    K.check(rc, "mma tile kernel")
     return out
 
 

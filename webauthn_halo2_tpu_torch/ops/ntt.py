@@ -195,9 +195,10 @@ def stage_a(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
     if x.data_ptr() % 16:
         raise ValueError("stage A reads 16-byte words: x must be 16-byte aligned")
     out = torch.empty_like(x)
-    rc = K.lib("ntt").wh2_ntt_stage_a(
-        x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.shape[1], B, n,
-        log_b, cq, K.modulus_words(spec), spec.n0, K.stream_ptr(x.device))
+    with K.on_card(x.device) as stream:
+        rc = K.lib("ntt").wh2_ntt_stage_a(
+            x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.shape[1], B, n,
+            log_b, cq, K.modulus_words(spec), spec.n0, stream)
     K.check(rc, "ntt stage A kernel")
     LAUNCHES["ntt_stage_a"] += 1
     return out
@@ -221,23 +222,23 @@ def stage_b(spec: FieldSpec, x: torch.Tensor, tw: torch.Tensor,
     if not (1 << s) < n:
         raise ValueError(f"stage B: h=2^{s} out of range for n={n}")
     out = torch.empty_like(x)
-    rc = K.lib("ntt").wh2_ntt_stage_b(
-        x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.shape[1], B, n, s,
-        K.modulus_words(spec), spec.n0, K.stream_ptr(x.device))
+    with K.on_card(x.device) as stream:
+        rc = K.lib("ntt").wh2_ntt_stage_b(
+            x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw.shape[1], B, n, s,
+            K.modulus_words(spec), spec.n0, stream)
     K.check(rc, "ntt stage B kernel")
     LAUNCHES["ntt_stage_b"] += 1
     return out
 
 
 def _check_stage_args(x: torch.Tensor, tw: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"the NTT kernels need CUDA tensors, got {x.device}")
+    K.card_of("the NTT kernels", x, tw)
     if x.dtype != torch.int32 or tw.dtype != torch.int32:
         raise TypeError("ntt stages take int32 word tensors")
     if x.ndim != 3 or x.shape[0] != W or not x.is_contiguous():
         raise ValueError(f"ntt stages take contiguous (8, B, n), got {tuple(x.shape)}")
-    if tw.device != x.device or not tw.is_contiguous() or tw.shape[1] < x.shape[2] - 1:
-        raise ValueError("ntt stages need the (8, n - 1) twiddle table on the same device")
+    if not tw.is_contiguous() or tw.shape[1] < x.shape[2] - 1:
+        raise ValueError("ntt stages need the (8, n - 1) twiddle table")
 
 
 def ntt_fused(spec: FieldSpec, a: torch.Tensor, k: int, inverse: bool = False,

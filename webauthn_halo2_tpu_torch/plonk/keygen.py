@@ -153,12 +153,12 @@ def _pack(cols: list, n: int, device) -> torch.Tensor:
 
 def keygen(srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list, copies: list,
            device=None) -> ProvingKey:
-    """keygen_vk + keygen_pk on `device` (None: the card), where the SRS
-    must already lie."""
+    """keygen_vk + keygen_pk on `device` (None: the current card), where the
+    SRS must already lie: an SRS on another device raises."""
     from .fused import batched_c2e, batched_l2c, powers_of, to_mont_stack
 
     dev = srs.g_lag.x.device
-    if resolve(device).type != dev.type:
+    if resolve(device) != dev:
         raise ValueError(f"SRS lies on {dev}, keygen asked for {device}")
     spans: dict[str, float] = {}
     clock = [time.time()]

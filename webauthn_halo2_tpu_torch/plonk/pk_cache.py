@@ -121,10 +121,10 @@ def save_pk(path: str, pk: ProvingKey) -> None:
 
 
 def load_pk(path: str, srs: SRS, cs: CS.ConstraintSystem, device=None) -> ProvingKey:
-    """A saved pk with its tensors on `device` (None: the card), where the
-    SRS must lie. Raises ValueError for a file of another format."""
+    """A saved pk with its tensors on `device` (None: the current card),
+    where the SRS must lie. Raises ValueError for a file of another format."""
     dev = resolve(device)
-    if srs.g_lag.x.device.type != dev.type:
+    if srs.g_lag.x.device != dev:
         raise ValueError(f"SRS lies on {srs.g_lag.x.device}, load_pk asked for {device}")
     with np.load(path) as z:
         if "format" not in z.files or z["format"].tobytes() != FORMAT:

@@ -122,8 +122,9 @@ def create_proof(
     transcript=None,
     device=None,
 ) -> bytes:
-    """Prove on `device` (None: the card), where the pk must lie."""
-    if resolve(device).type != pk.device.type:
+    """Prove on `device` (None: the current card), where the pk must lie:
+    a pk on another device raises, nothing is moved."""
+    if resolve(device) != pk.device:
         raise ValueError(f"pk lies on {pk.device}, create_proof asked for {device}")
     opens = {"shplonk": _shplonk_open, "gwc": _gwc_open}
     if scheme not in opens:
