@@ -164,18 +164,35 @@ Phases, one or more lines each:
      whether api.generate_proof(device="cuda:1") from this process
      (current device 0) gave phase 5's bytes, or that it was skipped for
      want of a second card;
- 15. every kernel of a path launched during that path's run (each run with
+ 15. the ECDSA circuit of auto_params(k) across the reference's degree
+     range (phase_degrees): k = 11, whose 5,832 constants do not fit the
+     one constants column of 2^11 rows, so api.download_keys raises
+     ValueError as the JAX package's keygen does, and the kernels at the
+     launch shapes a k = 11 proof would have, on random inputs, against
+     their plain versions; k = 13, the widest circuit the reference keys
+     (balanced placement), keyed by api.download_keys into ./keys of a new
+     directory under build/, served by the port's server (/prove,
+     /verify), proved from the manifest with api.generate_proof,
+     verified on both host paths, a flipped proof rejected, and proved
+     again on the serial route, byte-equal; k = 19,
+     the deepest, its SRS generated on the card, keyed, proved and
+     verified on both host paths. Every SRS's monomial points are the
+     committed k=17 SRS's first points. Each launch shape and commit batch
+     new to the run goes through phase_new_launch_shapes; rows 1-6 are
+     timed over each proof beside their bounds; a `degrees` JSON line;
+ 16. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
      the serial bucket sum did not run on the v3 route, rows 1-6 ran on
-     the GWC, ES256, server, batch, sharded and data-parallel paths (the
+     the GWC, ES256, server, batch, sharded, data-parallel and degrees
+     paths (the
      sharded and data-parallel paths' counts are rank 0's), and the
      montmul on the SRS path; a `kernels`
      JSON line with launches, times, bounds, the plain versions' times,
      for the MSM kernels their times and bounds over the proof's batches
      (the combine's also per batch), and for rows 1-3 the proof's launch
-     shapes; then the `es256`, `serving`, `sharded` and `data_parallel`
-     lines, and a line
+     shapes; then the `es256`, `serving`, `sharded`, `data_parallel` and
+     `degrees` lines, and a line
      with the card's name and power limit, the verification times on both
      host paths, the untraced batch and ES256's windowed quotient.
 """
@@ -1078,37 +1095,15 @@ def _flip(data: bytes) -> bytes:
     return bytes(bad)
 
 
-@contextlib.contextmanager
-def _python_host_path():
-    """While the block runs, the verifier's and the EVM's pairing check, the
-    verifier's host MSM and the Keccak of the transcript and the EVM are
-    their pure-Python oracles instead of the native library."""
-    from webauthn_halo2_tpu_torch.evm import machine
-    from webauthn_halo2_tpu_torch.fields import pairing as P
-    from webauthn_halo2_tpu_torch.plonk import transcript as T
-    from webauthn_halo2_tpu_torch.plonk import verifier as V
-    from webauthn_halo2_tpu_torch.utils import keccak as KC
-
-    swaps = [(V, "pairing_check", P.pairing_check_py), (V, "_host_msm", V._host_msm_py),
-             (T, "keccak256", KC.keccak256_py), (machine, "pairing_check", P.pairing_check_py),
-             (machine, "keccak256", KC.keccak256_py)]
-    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
-    for m, n, f in swaps:
-        setattr(m, n, f)
-    try:
-        yield
-    finally:
-        for m, n, f in saved:
-            setattr(m, n, f)
-
-
 def _both_paths(what: str, verify, proof: bytes) -> dict:
     """`verify` on a valid proof and on a flipped copy, through the native
     host path and through the Python one: fails unless both answer
     (accepted, rejected). Returns the seconds of each call."""
+    from webauthn_halo2_tpu_torch.utils.host_build import python_oracles
+
     out = {}
     for path in ("native", "python"):
-        with _python_host_path() if path == "python" else contextlib.nullcontext():
+        with python_oracles() if path == "python" else contextlib.nullcontext():
             verdicts, secs = [], []
             for data in (proof, _flip(proof)):
                 t0 = time.time()
@@ -1196,13 +1191,14 @@ def phase_keys_on_disk(api, params, signed, proof, dev):
 
 
 def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
-                            seen_sizes=(), batches=(), spec=None) -> int:
+                            seen_sizes=(), batches=(), spec=None, timed=None) -> int:
     """Each montmul and NTT launch shape in `new` that `seen` lacks, against
     its plain version on random words at that shape, exact; then the v3 MSM
     kernels, at the window and lanes of the batch's own n, on each commit
     batch of `batches` (bases, scalars) of another n than the SRS's or of
     a size not in `seen_sizes`, and on the last (random-scalar) batch,
-    against theirs on that batch, each timed beside its least work. The montmul
+    against theirs on that batch, each timed beside its least work (each
+    batch's rows appended to `timed` when it is a list). The montmul
     runs in `spec` (default Fr). Returns how many shapes and batches were
     checked."""
     from webauthn_halo2_tpu_torch.fields.limbs import FR_SPEC
@@ -1248,6 +1244,8 @@ def phase_new_launch_shapes(dev, gen, tag: str, seen: dict, new: dict, srs=None,
                 f"plain {r['plain_ms']:.1f} ms" for k, r in crow.items()))
         if any(errs.values()):
             fail(f"the v3 MSM kernels disagree with their plain versions on the {tag} batch {i}")
+        if timed is not None:
+            timed.append(crow)
         checked += 1
         torch.cuda.empty_cache()
     return checked
@@ -1650,7 +1648,9 @@ def phase_verifiers(api, key_dir: str, vk_path: str, dev, own: dict) -> dict:
             out[scheme]["host_paths"] = _both_paths(
                 "the GWC verifier in the port's EVM",
                 lambda data: chain.call(0xD0, addr, data).success, own[scheme])
-            with _python_host_path():
+            from webauthn_halo2_tpu_torch.utils.host_build import python_oracles
+
+            with python_oracles():
                 py_gas = chain.call(0xD0, addr, own[scheme]).gas_used
             if py_gas != calls["own"]["gas"]:
                 fail(f"the GWC verifier ran the port's proof at {calls['own']['gas']} gas "
@@ -2491,6 +2491,363 @@ KERNEL_META = {
     "mxu_montmul": ("webauthn_halo2_tpu_torch/csrc/mxu.cu",
                     "webauthn_halo2_tpu/ops/mxu_mod.py:363"),
 }
+# Phase 15's degrees, from the reference's benchmark range k = 11 to 19: the
+# deepest circuit; the widest one the reference circuit can key (at k = 11
+# and 12 its one constants column, a row for each distinct constant, is
+# longer than 2^k, and keygen refuses it in the JAX package as in the port);
+# and k = 11, whose launch shapes are the widest, checked on random inputs.
+DEGREE_DEEP = 19
+DEGREE_WIDE = 13
+DEGREE_REFUSED = 11
+
+
+def _degree_srs(k: int, cache_dir: str, dev, srs17):
+    """get_srs(k) generated into `cache_dir` (held in memory until popped),
+    and its seconds; its first min(2^k, 2^17) monomial points must be the
+    committed k=17 SRS's: they depend only on the seed."""
+    from webauthn_halo2_tpu_torch.plonk import srs as S
+
+    t0 = time.time()
+    srs = S.get_srs(k, cache_dir=cache_dir, device=dev)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    m = 1 << min(k, srs17.k)
+    if not all(torch.equal(a[:, :m], b[:, :m]) for a, b in zip(srs.g_mono, srs17.g_mono)):
+        fail(f"the k={k} SRS's monomial points are not the committed k=17 SRS's first {m}")
+    return srs, seconds
+
+
+def _msm_sums(rows: list) -> dict:
+    """Each MSM kernel's ms and bound ms summed over timed batch rows."""
+    out: dict = {}
+    for crow in rows:
+        for name, r in crow.items():
+            ms, bound = out.get(name, (0.0, 0.0))
+            out[name] = (ms + r["ms"], bound + RL.bound_ms(r)[0])
+    return {name: dict(ms=ms, bound_ms=bound) for name, (ms, bound) in out.items()}
+
+
+def _fits(params):
+    """The circuit at `params` built from the dummy inputs; fails the run
+    unless it fits at the first try (no AssertionError)."""
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import ECDSACircuit, ECDSAInputs
+
+    try:
+        return ECDSACircuit(params).build(ECDSAInputs.dummy())
+    except AssertionError as e:
+        fail(f"auto_params({params.degree}) does not fit at the first try: {e}")
+
+
+def phase_degrees(api, dev, gen, signed, srs17, seen_shapes: dict, counts,
+                  zero_counts) -> tuple:
+    """Phase 15: the ECDSA circuit of auto_params(k) at the ends of the
+    reference's degree range, in a new directory under build/ (removed at
+    the end). k = 11: the build of 497 + 80 columns with balanced placement
+    holds 5,832 constants in one column of 2^11 rows, and
+    api.download_keys raises ValueError, as the JAX package's keygen does;
+    the SRS is generated, and the kernels run at the launch shapes a k = 11
+    proof would have, on random inputs, against their plain versions: the
+    advice commit batch (497 + 80 columns, R = 37 x 577 rows), the
+    quotient's transforms and montmul over its stack on the extended domain
+    of 2^13. k = 13, the widest the reference keys (118 + 19 columns,
+    balanced): the SRS generated; api.download_keys into ./keys of the work
+    directory, the in-memory keys dropped; the port's server in a thread
+    there: a WebAuthn assertion through /prove, /verify (a flipped proof
+    rejected), as tests/test_server_e2e.py runs the JAX server at a degree
+    other than 17; api.generate_proof of phase 5's signature with a
+    deterministic rng from the manifest, api.verify on both host paths
+    (a flipped proof rejected); the same proof on the serial route,
+    byte-equal. (scripts/sweep_torch_degrees.py makes and checks a GWC
+    proof at every degree.) k = 19 (2 + 1 columns, n = 2^19,
+    an extended domain of 2^21): the SRS generated, keygen, the proof,
+    api.verify on both host paths. Every SRS's monomial points are the
+    committed k=17 SRS's first points. Every launch shape and commit batch
+    of these runs that the earlier phases did not check goes through
+    `phase_new_launch_shapes`; rows 1-3 are replayed at each proof's launch
+    shapes and rows 4-6 timed on its commit batches, beside their bounds.
+    The launch counts of the v3 runs (every kernel launched but the checks)
+    are the "deg" path's, the serial proof's "deg_serial". Returns (those
+    two, the numbers for the `degrees` line)."""
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from webauthn_halo2_tpu_torch.circuits.ecdsa_circuit import auto_params
+    from webauthn_halo2_tpu_torch.client import webauthn as wa
+    from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC, FR_SPEC
+    from webauthn_halo2_tpu_torch.fields.ref_curve import P256_CURVE
+    from webauthn_halo2_tpu_torch.ops import msm as MS
+    from webauthn_halo2_tpu_torch.ops import msm_fused as MF
+    from webauthn_halo2_tpu_torch.ops import ntt as N
+    from webauthn_halo2_tpu_torch.plonk import keygen as KG
+    from webauthn_halo2_tpu_torch.plonk import srs as S
+    from webauthn_halo2_tpu_torch.server import app
+
+    api._PK_CACHE.clear()
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_degrees_", dir=os.path.join(ROOT, "build"))
+    seen = {name: list(v) for name, v in seen_shapes.items()}
+    deg: dict = {}
+    summary: dict = {}
+
+    def take():  # the v3 runs' launches so far into `deg`, then from zero
+        for name, v in counts().items():
+            deg[name] = deg.get(name, 0) + v
+        zero_counts()
+
+    def check_new(tag, shapes, srs, batches=(), sizes=(), timed=None, spec=None):
+        """phase_new_launch_shapes against everything checked so far; the
+        checks' own launches are not counted."""
+        new = phase_new_launch_shapes(dev, gen, tag, seen, shapes, srs, sizes, batches,
+                                      spec=spec, timed=timed)
+        for name, keys in shapes.items():
+            seen[name] = seen[name] + keys
+        zero_counts()
+        return new
+
+    def replay(proof_shapes, timed):
+        """Rows 1-3 replayed at the proof's launch shapes, rows 4-6 timed on
+        its batches: {kernel: {ms, bound_ms}} over the proof."""
+        out = {name: dict(ms=ms, bound_ms=bound) for name, (ms, bound, _) in
+               phase_launch_shapes(dev, gen, proof_shapes).items()}
+        out.update(_msm_sums(timed))
+        zero_counts()
+        return out
+
+    srs_shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+    cwd = os.getcwd()
+    try:
+        zero_counts()
+        # k = 11: not keyable; the widest launch shapes on random inputs
+        k = DEGREE_REFUSED
+        t0 = time.time()
+        params = auto_params(k)
+        cs, fixed, _advice, _copies = _fits(params)
+        consts = len(fixed[params.num_advice])
+        stop = _record_launch_shapes(srs_shapes)
+        srs11, srs11_s = _degree_srs(k, work, dev, srs17)
+        stop()
+        try:
+            api.download_keys(k, os.path.join(work, "k11", "proving_key.pk"),
+                              os.path.join(work, "k11", "verifying_key.vk"), params=params,
+                              device=dev)
+            fail(f"api.download_keys keyed k={k}, whose constants column has {consts} rows")
+        except ValueError as e:
+            refusal = str(e)
+        take()
+        domain = KG._domain_for(cs, k)
+        ek = domain.extended_k
+        m_stack = (cs.num_advice + cs.num_instance + cs.num_perm_chunks()
+                   + 5 * len(cs.lookups) + 1)
+        log_t, cq = N.stage_a_schedule(m_stack, ek)
+        wide = {"montmul": [(m_stack << ek, False, False)],
+                "ntt_stage_a": [(m_stack, 1 << ek, log_t, cq)],
+                "ntt_stage_b": [(m_stack, 1 << ek, s) for s in range(log_t, ek)]}
+        wide_rows: list = []
+        scalars = _rand_words(FR_SPEC, (cs.num_advice, srs11.n), gen, dev)
+        new11 = check_new(f"deg k={k}", wide, srs11, [(srs11.g_lag, scalars)], timed=wide_rows)
+        del scalars
+        kernels11 = replay(wide, wide_rows)
+        summary[k] = dict(
+            num_advice=params.num_advice, num_lookup=params.num_lookup_advice,
+            balance=params.balance_columns, n=1 << k, constants=consts,
+            download_keys=refusal, srs_s=srs11_s, advice_batch=cs.num_advice,
+            quotient_stack=m_stack, extended_k=ek, shapes_checked=new11,
+            kernels_at_shapes=kernels11, seconds=time.time() - t0)
+        log(f"[degrees] k={k}: {params.num_advice}+{params.num_lookup_advice} columns, "
+            f"balanced; {consts} constants in one column of {1 << k} rows; download_keys "
+            f"raised ValueError: {refusal}; SRS generated in {srs11_s:.2f}s; {new11} launch "
+            f"shapes of a k={k} proof (the advice batch of {cs.num_advice} columns, the "
+            f"quotient stack of {m_stack} on 2^{ek}) equal their plain versions: "
+            + json.dumps(kernels11))
+        del srs11
+        S._SRS_MEM_CACHE.pop((k, b"dev", str(dev)))
+        torch.cuda.empty_cache()
+
+        # k = 13: the widest keyable circuit, through download_keys, the
+        # server and api from the manifest; the serial route
+        k = DEGREE_WIDE
+        t0 = time.time()
+        params = auto_params(k)
+        _fits(params)
+        stop = _record_launch_shapes(srs_shapes)
+        srs13, srs13_s = _degree_srs(k, work, dev, srs17)
+        stop()
+        take()
+        shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+        proof_shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+        batches: list = []
+        stop_batches = _record_window_sums(batches)
+        stop_shapes = _record_launch_shapes(shapes)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        os.chdir(work)
+        pk_path, vk_path = "./keys/proving_key.pk", "./keys/verifying_key.vk"
+        t1 = time.time()
+        api.download_keys(k, pk_path, vk_path, params=params, device=dev)
+        torch.cuda.synchronize()
+        keygen_s = time.time() - t1
+        api._PK_CACHE.clear()  # every later call reads the manifest and its key file
+        keygen_batches = len(batches)
+        srv = app.ThreadingHTTPServer(("127.0.0.1", 0), app.Handler)
+        thread = threading.Thread(target=srv.serve_forever, daemon=True, name="server")
+        thread.start()
+        base_url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def post(route: str, body: dict) -> str:
+            req = urllib.request.Request(base_url + route, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"},
+                                         method="POST")
+            try:
+                with urllib.request.urlopen(req, timeout=600) as r:
+                    code, text = r.status, r.read().decode()
+            except urllib.error.HTTPError as e:
+                code, text = e.code, e.read().decode()
+            if code != 200:
+                fail(f"{route} at k={k} answered {code} {text[:300]!r}")
+            return text
+
+        try:
+            sk = 1 + _Seeded(31337).randbelow(P256_CURVE.n - 1)
+            cred = wa.Credential("webauthn-halo2-tpu.local", bytes(range(32)), sk,
+                                 P256_CURVE.mul(sk, P256_CURVE.g))
+            assertion = wa.authenticate(cred, b"chip_smoke degrees",
+                                        k=1 + _Seeded(4242).randbelow(P256_CURVE.n - 1))
+            t1 = time.time()
+            proof_hex = post("/prove", wa.prove_request_body(assertion, cred))
+            server_prove_s = time.time() - t1
+            verdicts = [post("/verify", {"verifying_key_path": vk_path, "proof": proof_hex}),
+                        post("/verify", {"verifying_key_path": vk_path,
+                                         "proof": _flip(bytes.fromhex(proof_hex)).hex()})]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            thread.join(30)
+        if verdicts != ["verified", "rejected"]:
+            fail(f"/verify at k={k} answered {verdicts}, not ['verified', 'rejected']")
+        mark = len(batches)
+        stop_proof = _record_launch_shapes(proof_shapes)
+        t1 = time.time()
+        proof = api.generate_proof(*signed, proving_key_path=pk_path, device=dev,
+                                   rng=_det_rng(b"chip_smoke degrees"))
+        prove_s = time.time() - t1
+        stop_proof()
+        proof_batches = batches[mark:]
+        host = _both_paths(f"api.verify (k={k})",
+                           lambda data: api.verify(data, vk_path, device=dev), proof)
+        peak = _gb(torch.cuda.max_memory_allocated() - base)
+        stop_shapes()
+        stop_batches()
+        take()
+        KG.MSM_ENGINE = MS
+        try:
+            t1 = time.time()
+            serial_proof = api.generate_proof(*signed, proving_key_path=pk_path, device=dev,
+                                              rng=_det_rng(b"chip_smoke degrees"))
+            serial_s = time.time() - t1
+        finally:
+            KG.MSM_ENGINE = MF
+        deg_serial = counts()
+        zero_counts()
+        os.chdir(cwd)
+        if serial_proof != proof:
+            fail(f"the serial route's k={k} proof differs from the v3 route's")
+        if not deg_serial["ec_add_unsafe"] or deg_serial["msm_interior"]:
+            fail(f"the serial route at k={k} launched {deg_serial}")
+        sizes = {sc.shape[1] for _, sc in proof_batches}
+        new13 = check_new(f"deg k={k}", shapes, srs13, batches[:keygen_batches])
+        timed13: list = []
+        new13 += check_new(f"deg k={k}", {}, srs13, proof_batches, timed=timed13)
+        kernels13 = replay(proof_shapes, timed13)
+        del batches, proof_batches
+        summary[k] = dict(
+            num_advice=params.num_advice, num_lookup=params.num_lookup_advice,
+            balance=params.balance_columns, srs_s=srs13_s, keygen_s=keygen_s,
+            server_prove_s=server_prove_s, prove_s=prove_s, proof_bytes=len(proof),
+            server_proof_bytes=len(proof_hex) // 2, verify_host_paths=host,
+            serial_s=serial_s, peak_gb=peak,
+            commit_batches=sorted(sizes), shapes_checked=new13, kernels_over_proof=kernels13,
+            seconds=time.time() - t0)
+        log(f"[degrees] k={k}: {params.num_advice}+{params.num_lookup_advice} columns, "
+            f"balanced; SRS {srs13_s:.2f}s, download_keys {keygen_s:.2f}s, /prove "
+            f"{server_prove_s:.2f}s and /verify {verdicts}, a proof from the manifest "
+            f"{prove_s:.2f}s ({len(proof)} bytes), the serial route's proof identical "
+            f"({serial_s:.2f}s), peak {peak} GB; {new13} new "
+            f"launch shapes and batches equal their plain versions; over the proof: "
+            + json.dumps(kernels13))
+        api._PK_CACHE.clear()
+        del srs13
+        S._SRS_MEM_CACHE.pop((k, b"dev", str(dev)))
+        torch.cuda.empty_cache()
+
+        # k = 19: the deepest circuit
+        k = DEGREE_DEEP
+        t0 = time.time()
+        params = auto_params(k)
+        _fits(params)
+        stop = _record_launch_shapes(srs_shapes)
+        srs19, srs19_s = _degree_srs(k, work, dev, srs17)
+        stop()
+        spans19 = dict(srs19.spans)
+        take()
+        shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+        proof_shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+        batches = []
+        stop_batches = _record_window_sums(batches)
+        stop_shapes = _record_launch_shapes(shapes)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.time()
+        api.proving_key(params, device=dev)
+        torch.cuda.synchronize()
+        keygen_s = time.time() - t1
+        keygen_batches = len(batches)
+        stop_proof = _record_launch_shapes(proof_shapes)
+        t1 = time.time()
+        proof = api.generate_proof(*signed, params=params, device=dev,
+                                   rng=_det_rng(b"chip_smoke degrees"))
+        prove_s = time.time() - t1
+        stop_proof()
+        host = _both_paths(f"api.verify (k={k})",
+                           lambda data: api.verify(data, params=params, device=dev), proof)
+        peak = _gb(torch.cuda.max_memory_allocated() - base)
+        stop_shapes()
+        stop_batches()
+        take()
+        new19 = check_new(f"deg k={k}", shapes, srs19, batches[:keygen_batches])
+        timed19: list = []
+        new19 += check_new(f"deg k={k}", {}, srs19, batches[keygen_batches:], timed=timed19)
+        kernels19 = replay(proof_shapes, timed19)
+        sizes = sorted({sc.shape[1] for _, sc in batches[keygen_batches:]})
+        del batches
+        summary[k] = dict(
+            num_advice=params.num_advice, num_lookup=params.num_lookup_advice,
+            balance=params.balance_columns, srs_s=srs19_s, srs_spans=spans19,
+            keygen_s=keygen_s, prove_s=prove_s, proof_bytes=len(proof),
+            verify_host_paths=host, peak_gb=peak, commit_batches=sizes,
+            shapes_checked=new19, kernels_over_proof=kernels19, seconds=time.time() - t0)
+        log(f"[degrees] k={k}: {params.num_advice}+{params.num_lookup_advice} columns; SRS "
+            f"generated in {srs19_s:.2f}s " + json.dumps({n: round(v, 3) for n, v in
+                                                          spans19.items()})
+            + f", keygen {keygen_s:.2f}s, proof {prove_s:.2f}s ({len(proof)} bytes), peak "
+            f"{peak} GB; {new19} new launch shapes and batches equal their plain versions; "
+            "over the proof: " + json.dumps(kernels19))
+        api._PK_CACHE.clear()
+        del srs19
+        S._SRS_MEM_CACHE.pop((k, b"dev", str(dev)))
+        new_srs = check_new("deg SRS", srs_shapes, None, spec=FQ_SPEC)
+        summary["srs_shapes_checked"] = new_srs
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return deg, deg_serial, summary
+
+
 # The path whose run counts each kernel's launches (default: the v3 main
 # path) and the counter it reads there: row 7 is the interior kernel
 # launched by the v1 driver; row 8 is every point add of the serial route.
@@ -2799,7 +3156,14 @@ def main() -> int:
     data_parallel["seconds"] = time.time() - t14
     log(f"[dp] done ({data_parallel['seconds']:.1f}s)")
 
-    # 15. counters and the kernels line
+    # 15. the circuit across the reference's degree range: k = 11, 13, 19
+    t15 = time.time()
+    deg_launches, deg_serial, degrees = phase_degrees(api, dev, gen, signed, srs, seen,
+                                                      counts, zero_counts)
+    degrees["seconds"] = time.time() - t15
+    log(f"[degrees] done ({degrees['seconds']:.1f}s)")
+
+    # 16. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -2817,10 +3181,11 @@ def main() -> int:
                "mxu": {"mxu_montmul": mxu_launches}, "gwc": gwc_launches,
                "es256": es256_launches, "srs": srs_launches, "server": server_launches,
                "batch": batch_launches, "sharded": sharded.pop("launches"),
-               "dp": data_parallel.pop("launches")}
+               "dp": data_parallel.pop("launches"), "deg": deg_launches,
+               "deg_serial": deg_serial}
     if srs_launches["montmul"] == 0:
         fail("kernel montmul was never launched on the srs path")
-    for path in ("gwc", "es256", "server", "batch", "sharded", "dp"):
+    for path in ("gwc", "es256", "server", "batch", "sharded", "dp", "deg"):
         for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
                      "msm_combine"):
             if by_path[path][name] == 0:
@@ -2853,6 +3218,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
+    print(json.dumps({"degrees": degrees}), flush=True)
     verification.update({"evm_call_gwc": evm["gwc"]["host_paths"],
                          "es256_verify_proof": es256["verify_host_paths"],
                          **serving["verify_host_paths"]})

@@ -17,6 +17,7 @@ run the builder with any witness.
 """
 from __future__ import annotations
 
+import heapq
 from typing import NamedTuple
 
 from ..fields.constants import BN254_FR
@@ -56,6 +57,9 @@ class CircuitBuilder:
         # bookkeeping (~2x faster; profile: copies+selector appends dominate)
         self.layout = layout
         self.columns: list[list[int]] = [[] for _ in range(num_advice)]
+        # balance: (rows, column) after each placement, a min-heap whose top
+        # live entry is the first of the shortest columns
+        self._fill = [(0, c) for c in range(num_advice)]
         self.selectors: list[list[int]] = [[] for _ in range(num_advice)]
         self._col_rr = 0
         self.copies: list = []  # ((kind, col, row), (kind, col, row))
@@ -78,14 +82,15 @@ class CircuitBuilder:
         if column is not None:
             col = column
         elif self.balance:
-            col = min(range(self.num_advice),
-                      key=lambda c: len(self.columns[c]))
+            col = self._shortest()
         else:
             col = self._col_rr
         self._col_rr = (col + 1) % self.num_advice
         base = len(self.columns[col])
         vals = [v % R for v in values]
         self.columns[col].extend(vals)
+        if self.balance:
+            heapq.heappush(self._fill, (len(self.columns[col]), col))
         if self.layout:
             sel = self.selectors[col]
             sel.extend([0] * len(vals))
@@ -100,6 +105,16 @@ class CircuitBuilder:
                 for o in gate_offsets:
                     sel[base + o] = 1
         return [Cell(col, base + i, v) for i, v in enumerate(vals)]
+
+    def _shortest(self) -> int:
+        """The column `min(range(num_advice), key=len(columns[c]))` gives,
+        in logarithmic time: entries a later placement outdated are dropped
+        as they reach the top."""
+        while True:
+            rows, col = self._fill[0]
+            if rows == len(self.columns[col]):
+                return col
+            heapq.heappop(self._fill)
 
     def expose_public(self, cell: Cell) -> int:
         """Bind `cell` to public-input row len(public_cells) (instance

@@ -144,8 +144,14 @@ def assemble_permutation(cs: CS.ConstraintSystem, n: int, copies: list):
 
 
 def _pack(cols: list, n: int, device) -> torch.Tensor:
+    """(8, len(cols), n) canonical words of the columns, each zero-padded to
+    n. A column longer than n raises ValueError, as the JAX package's
+    packing does (the reference circuit's constants column at k = 11 and
+    12 holds more constants than 2^k rows)."""
     flat: list[int] = []
-    for col in cols:
+    for i, col in enumerate(cols):
+        if len(col) > n:
+            raise ValueError(f"fixed column {i} has {len(col)} rows, more than n = {n}")
         flat.extend(int(v) % R for v in col)
         flat.extend([0] * (n - len(col)))
     return torch.as_tensor(ints_to_words(flat).reshape(W, len(cols), n)).to(device)

@@ -14,6 +14,7 @@ stay as the tests' oracle. Nothing is built or loaded at import.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import functools
@@ -117,3 +118,28 @@ def build_all() -> None:
         t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+@contextlib.contextmanager
+def python_oracles():
+    """While the block runs, the verifier's and the EVM's pairing check, the
+    verifier's host MSM and the Keccak of the transcript and the EVM are
+    their pure-Python oracles instead of the native libraries (a check that
+    both host paths give the same verdicts)."""
+    from ..evm import machine
+    from ..fields import pairing as P
+    from ..plonk import transcript as T
+    from ..plonk import verifier as V
+    from . import keccak as KC
+
+    swaps = [(V, "pairing_check", P.pairing_check_py), (V, "_host_msm", V._host_msm_py),
+             (T, "keccak256", KC.keccak256_py), (machine, "pairing_check", P.pairing_check_py),
+             (machine, "keccak256", KC.keccak256_py)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
