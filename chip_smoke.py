@@ -180,19 +180,40 @@ Phases, one or more lines each:
      committed k=17 SRS's first points. Each launch shape and commit batch
      new to the run goes through phase_new_launch_shapes; rows 1-6 are
      timed over each proof beside their bounds; a `degrees` JSON line;
- 16. every kernel of a path launched during that path's run (each run with
+ 16. the operator's path, in a new directory under build/ (removed at the
+     end): (a) scripts/deploy_suite_torch.py with the stub verifier, then
+     with the GWC verifier's deploy code that phase 9's generate_verifier
+     wrote and phase 9's GWC proof (handleOps succeeds, the counter reads
+     1, the suite's deploys, deposit and createAccount at the stub run's
+     gas), and with one byte of that proof flipped (exits nonzero, naming
+     handleOps); (b) scripts/profile_torch_keygen.py at k=17 in two child
+     processes with WH2_KEY_DIR and WH2_SRS_DIR set to new empty
+     directories: the first generates and saves the SRS on the card, makes
+     and saves the key, the second loads both; each proves phase 5's
+     signature with phase 5's rng (phase 5's bytes, the vk of phase 4) and
+     prints its step table (wall and device seconds, launches, peak
+     memory); then this process's api.proving_key loads the key from
+     WH2_KEY_DIR and proves phase 5's bytes; the first child's launch
+     counts are the `startup` path's; each child records the field and
+     shape of its montmul and NTT launches, and every shape the earlier
+     phases 4, 5 and 9 did not check goes through phase_new_launch_shapes
+     in its field; (c) scripts/gc_torch_builds.py: --dry-run keeps every library
+     this process loaded and lists a stale library planted under a made-up
+     digest; without --dry-run that library goes, and a new process loads
+     every current library without building one;
+ 17. every kernel of a path launched during that path's run (each run with
      the counts from zero; the proof launched the interior and the combine
      once a batch, the scan's tile and join kernels once each a batch), and
      the serial bucket sum did not run on the v3 route, rows 1-6 ran on
-     the GWC, ES256, server, batch, sharded, data-parallel and degrees
-     paths (the
-     sharded and data-parallel paths' counts are rank 0's), and the
+     the GWC, ES256, server, batch, sharded, data-parallel, degrees and
+     start-up paths (the sharded and data-parallel paths' counts are rank
+     0's, the start-up path's its first child's), and the
      montmul on the SRS path; a `kernels`
      JSON line with launches, times, bounds, the plain versions' times,
      for the MSM kernels their times and bounds over the proof's batches
      (the combine's also per batch), and for rows 1-3 the proof's launch
-     shapes; then the `es256`, `serving`, `sharded`, `data_parallel` and
-     `degrees` lines, and a line
+     shapes; then the `es256`, `serving`, `sharded`, `data_parallel`,
+     `degrees` and `operator` lines, and a line
      with the card's name and power limit, the verification times on both
      host paths, the untraced batch and ES256's windowed quotient.
 """
@@ -802,21 +823,24 @@ def _launch_recorder(module, name: str, key, seen: list):
     return lambda: setattr(module, name, orig)
 
 
-def _record_launch_shapes(shapes: dict):
+def _record_launch_shapes(shapes: dict, by_field: bool = False):
     """Record the shape of every montmul, NTT stage A and stage B launch into
-    shapes["montmul"], ["ntt_stage_a"], ["ntt_stage_b"]; returns a function
-    that stops it."""
+    shapes["montmul"], ["ntt_stage_a"], ["ntt_stage_b"], each shape after
+    its field's name when `by_field`; returns a function that stops it."""
     from webauthn_halo2_tpu_torch.ops import modops as M
     from webauthn_halo2_tpu_torch.ops import ntt as N
 
+    def keyed(key):
+        return (lambda spec, *a, **kw: (spec.name, *key(spec, *a, **kw))) if by_field else key
+
     restore = [
-        _launch_recorder(M, "montmul_cuda", lambda spec, a, b, *_, **__: (
+        _launch_recorder(M, "montmul_cuda", keyed(lambda spec, a, b, *_, **__: (
             max(a[0].numel(), b[0].numel(), torch.broadcast_shapes(a.shape, b.shape)[1:].numel()),
-            a.numel() == 8, b.numel() == 8), shapes["montmul"]),
-        _launch_recorder(N, "stage_a", lambda spec, x, tw, log_t, cq=0: (
-            x.shape[1], x.shape[2], log_t, cq), shapes["ntt_stage_a"]),
-        _launch_recorder(N, "stage_b", lambda spec, x, tw, s: (x.shape[1], x.shape[2], s),
-                         shapes["ntt_stage_b"])]
+            a.numel() == 8, b.numel() == 8)), shapes["montmul"]),
+        _launch_recorder(N, "stage_a", keyed(lambda spec, x, tw, log_t, cq=0: (
+            x.shape[1], x.shape[2], log_t, cq)), shapes["ntt_stage_a"]),
+        _launch_recorder(N, "stage_b", keyed(lambda spec, x, tw, s: (
+            x.shape[1], x.shape[2], s)), shapes["ntt_stage_b"])]
 
     def stop():
         for undo in restore:
@@ -2848,6 +2872,268 @@ def phase_degrees(api, dev, gen, signed, srs17, seen_shapes: dict, counts,
     return deg, deg_serial, summary
 
 
+# Phase 16a: the rows of the deploy script's gas report that do not depend
+# on the verifier (the verifier is deployed first, at the same address).
+SUITE_ROWS = ("deploy EntryPoint", "deploy P256Account impl", "deploy P256AccountFactory",
+              "deploy SponsorPaymaster", "deploy Counter", "paymaster.deposit(1 ETH)",
+              "factory.createAccount")
+GAS_ROW = re.compile(r"^  (?P<name>.+?)\s+(?P<gas>[0-9,]+)$")
+
+
+def _run_script(name: str, *args, env=None, timeout: float = 300) -> tuple:
+    """`python3 scripts/<name>.py args` from the root of the checkout: the
+    finished process and its seconds."""
+    t0 = time.time()
+    run = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", f"{name}.py"), *args],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=timeout)
+    return run, time.time() - t0
+
+
+def phase_deploy(work: str, gwc: bytes, gwc_code: str) -> dict:
+    """Phase 16a: scripts/deploy_suite_torch.py with the stub verifier, then
+    with the GWC verifier's deploy code that phase 9's generate_verifier
+    wrote and phase 9's GWC proof (handleOps succeeds, the counter reads 1),
+    the suite's rows equal to the stub run's; the same with one byte of the
+    proof flipped exits nonzero naming handleOps."""
+    code = os.path.join(work, "P256Verifier.code")
+    with open(code, "w") as f:
+        f.write(gwc_code)
+    proofs = {}
+    for name, data in (("gwc", gwc), ("flipped", _flip(gwc))):
+        proofs[name] = os.path.join(work, f"proof_{name}.hex")
+        with open(proofs[name], "w") as f:
+            f.write(data.hex())
+    runs = {"stub": _run_script("deploy_suite_torch")}
+    for name in ("gwc", "flipped"):
+        runs[name] = _run_script("deploy_suite_torch", "--verifier-code", code,
+                                 "--proof", proofs[name])
+    rows = {}
+    for name in ("stub", "gwc"):
+        run, _ = runs[name]
+        if run.returncode or "counter incremented through handleOps: OK" not in run.stdout:
+            log(run.stdout + run.stderr[-4000:])
+            fail(f"the deploy script with the {name} verifier exited {run.returncode}")
+        rows[name] = {m["name"]: int(m["gas"].replace(",", ""))
+                      for m in map(GAS_ROW.match, run.stdout.splitlines()) if m}
+    differ = {row: (rows["stub"].get(row), rows["gwc"].get(row)) for row in SUITE_ROWS
+              if rows["stub"].get(row) is None or rows["stub"][row] != rows["gwc"].get(row)}
+    if differ:
+        fail(f"the deploy's suite rows differ between the stub and the GWC verifier: {differ}")
+    flipped, _ = runs["flipped"]
+    said = (flipped.stderr.strip().splitlines() or [""])[-1]
+    if flipped.returncode == 0 or "handleOps" not in said:
+        fail(f"the deploy with a flipped proof exited {flipped.returncode}: {said[:300]}")
+    out = dict(rows=rows, seconds={name: s for name, (_, s) in runs.items()},
+               flipped=said[:120], flipped_rc=flipped.returncode)
+    log("[deploy] " + json.dumps(out))
+    return out
+
+
+def startup_child(argv: list) -> int:
+    """Phase 16b's child process: scripts/profile_torch_keygen.py's main on
+    `argv`, the field and shape of every montmul and NTT launch recorded
+    into the record that --out names ("launch_shapes")."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_keygen", os.path.join(ROOT, "scripts", "profile_torch_keygen.py"))
+    profile = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile)
+    shapes = {"montmul": [], "ntt_stage_a": [], "ntt_stage_b": []}
+    stop = _record_launch_shapes(shapes, by_field=True)
+    try:
+        rc = profile.main(argv)
+    finally:
+        stop()
+    out = argv[argv.index("--out") + 1]
+    with open(out) as f:
+        record = json.load(f)
+    record["launch_shapes"] = {name: sorted(set(keys)) for name, keys in shapes.items()}
+    with open(out, "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def _check_child_shapes(dev, gen, records: list, seen: dict) -> int:
+    """Each launch shape of the start-up children that `seen` lacks, against
+    its plain version in its own field (phase_new_launch_shapes). Returns
+    how many were checked."""
+    from webauthn_halo2_tpu_torch.fields.limbs import FQ_SPEC, FR_SPEC
+
+    for name in seen:
+        fields = {key[0] for r in records for key in r["launch_shapes"][name]}
+        # phase_new_launch_shapes replays an NTT in Fr only
+        if fields - ({FR_SPEC.name, FQ_SPEC.name} if name == "montmul" else {FR_SPEC.name}):
+            fail(f"a start-up child launched {name} in {sorted(fields)}")
+    checked = 0
+    for spec in (FR_SPEC, FQ_SPEC):
+        new = {name: [tuple(key[1:]) for r in records for key in r["launch_shapes"][name]
+                      if key[0] == spec.name] for name in seen}
+        checked += phase_new_launch_shapes(dev, gen, f"startup {spec.name}", seen, new,
+                                           spec=spec)
+    return checked
+
+
+def phase_startup(api, params, dev, gen, signed, proof: bytes, vk_repr: int, seen: dict,
+                  work: str) -> tuple:
+    """Phase 16b: scripts/profile_torch_keygen.py at k=17 in two child
+    processes (startup_child) with WH2_KEY_DIR and WH2_SRS_DIR set to new
+    empty directories and phase 5's signature and rng. The first generates
+    and saves the SRS, makes and saves the key and proves; the second loads
+    both: the vk of both is phase 4's, both proofs are phase 5's bytes.
+    Each launch shape of the children that `seen` lacks is held against its
+    plain version in its field. Then this process's api.proving_key, its
+    in-memory key dropped, loads the key from WH2_KEY_DIR (no keygen span)
+    and proves phase 5's bytes. Returns the first child's kernel launches
+    and the summary."""
+    keys, srs_dir = os.path.join(work, "keys"), os.path.join(work, "srs")
+    os.makedirs(keys)
+    os.makedirs(srs_dir)
+    env = dict(os.environ, WH2_KEY_DIR=keys, WH2_SRS_DIR=srs_dir)
+    torch.cuda.empty_cache()  # the children share the card
+    records = []
+    for child in (1, 2):
+        out = os.path.join(work, f"startup_{child}.json")
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke\n"
+             "sys.exit(chip_smoke.startup_child(sys.argv[1:]))",
+             "--degree", str(params.degree), "--signature", b"".join(signed).hex(),
+             "--rng-seed", "chip_smoke", "--out", out],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.time() - t0
+        if run.returncode:
+            log(run.stdout[-2000:] + run.stderr[-6000:])
+            fail(f"start-up child {child} exited {run.returncode}")
+        table = run.stderr[run.stderr.find("start-up at"):run.stderr.find("record:")]
+        log(f"[startup] child {child}, {seconds:.1f}s as a process:\n{table.rstrip()}")
+        with open(out) as f:
+            records.append(json.load(f) | {"process_s": seconds})
+    first, second = records
+    if (first["srs"], first["key"], second["srs"], second["key"]) != (
+            "generated", "made", "loaded", "loaded"):
+        fail(f"the children's SRS and key came {first['srs']}, {first['key']} and "
+             f"{second['srs']}, {second['key']}, not generated, made and loaded, loaded")
+    if (sorted(os.listdir(srs_dir)) != [os.path.basename(first["srs_file"])]
+            or sorted(os.listdir(keys)) != [os.path.basename(first["key_file"])]):
+        fail(f"WH2_SRS_DIR holds {os.listdir(srs_dir)} and WH2_KEY_DIR {os.listdir(keys)}")
+    if {first["vk_transcript_repr"], second["vk_transcript_repr"]} != {hex(vk_repr)}:
+        fail("a child's vk differs from phase 4's")
+    if {first["proof_hex"], second["proof_hex"]} != {proof.hex()}:
+        fail("a child's proof of phase 5's signature and rng differs from phase 5's bytes")
+    t0 = time.time()
+    shapes_checked = _check_child_shapes(dev, gen, records, seen)
+    log(f"[startup] {shapes_checked} launch shapes of the children new to the run equal "
+        f"their plain versions ({time.time() - t0:.1f}s)")
+    saved = os.environ.get("WH2_KEY_DIR")
+    os.environ["WH2_KEY_DIR"] = keys
+    try:
+        api._PK_CACHE.clear()
+        t0 = time.time()
+        pk = api.proving_key(params, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        again = api.generate_proof(*signed, params=params, device=dev,
+                                   rng=_det_rng(b"chip_smoke"))
+    finally:
+        if saved is None:
+            os.environ.pop("WH2_KEY_DIR")
+        else:
+            os.environ["WH2_KEY_DIR"] = saved
+        api._PK_CACHE.clear()
+    if pk.spans or pk.vk.transcript_repr != vk_repr:
+        fail("api.proving_key did not load phase 4's key from WH2_KEY_DIR")
+    if again != proof:
+        fail("the proof from the key api.proving_key loaded from WH2_KEY_DIR differs")
+    log(f"[startup] api.proving_key loaded the key from WH2_KEY_DIR in {load_s:.2f}s and "
+        "proved phase 5's bytes")
+    keep = ("srs", "key", "startup_s", "process_s", "steps", "reload", "keygen_spans",
+            "key_file_bytes", "kernel_launches", "card", "nvidia_smi")
+    summary = dict(children=[{k: r.get(k) for k in keep} for r in records],
+                   second_over_first=second["startup_s"] / first["startup_s"],
+                   api_proving_key_from_dir_s=load_s, new_launch_shapes=shapes_checked)
+    return first["kernel_launches"], summary
+
+
+def phase_cleaner(K, HB) -> dict:
+    """Phase 16c: scripts/gc_torch_builds.py. With --dry-run it keeps every
+    library this process loaded and lists a stale library planted under a
+    made-up digest, deleting nothing; without, the planted files go, and a
+    new process loads every current library without building one."""
+    loaded = sorted({lib._name for lib in K._STATE.libs.values()}
+                    | {lib._name for lib in HB._LIBS.values()})
+    planted = [K.BUILD_DIR / f"libmontmul_0123456789abcdef{ext}" for ext in (".so", ".log")]
+    if planted[0] in K.library_paths().values():
+        fail("the made-up digest is the montmul library's own")
+    for path in planted:
+        path.write_bytes(b"a library of an older source")
+    reports = {}
+    for name, args in (("dry_run", ["--dry-run"]), ("run", [])):
+        run, seconds = _run_script("gc_torch_builds", *args, timeout=120)
+        if run.returncode:
+            fail(f"gc_torch_builds {' '.join(args)} exited {run.returncode}: "
+                 f"{run.stderr[-2000:]}")
+        report = json.loads(run.stdout.splitlines()[-1])
+        gone = set(report["stale"]) | set(report["orphaned"])
+        if gone & set(loaded):
+            fail(f"gc_torch_builds {' '.join(args)} would delete loaded libraries "
+                 f"{sorted(gone & set(loaded))}")
+        if not {str(p) for p in planted} <= set(report["stale"]):
+            fail(f"gc_torch_builds {' '.join(args)} did not list the planted library: "
+                 f"{report['stale']}")
+        if name == "dry_run" and not all(p.exists() for p in planted):
+            fail("gc_torch_builds --dry-run deleted a file")
+        reports[name] = dict(seconds=seconds, stale=len(report["stale"]),
+                             orphaned=len(report["orphaned"]),
+                             freed_bytes=report["freed_bytes"], kept_bytes=report["kept_bytes"])
+    if any(p.exists() for p in planted) or not all(os.path.exists(p) for p in loaded):
+        fail("gc_torch_builds left the planted library or removed a loaded one")
+    check = subprocess.run(
+        [sys.executable, "-c", "import json\n"
+         "from webauthn_halo2_tpu_torch.ops import kernels as K\n"
+         "from webauthn_halo2_tpu_torch.utils import host_build as HB\n"
+         "K.build_all(); HB.build_all()\n"
+         "print(json.dumps({'built': K.BUILD_SECONDS, 'loaded': sorted("
+         "[lib._name for lib in K._STATE.libs.values()] + "
+         "[lib._name for lib in HB._LIBS.values()])}))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if check.returncode:
+        fail(f"the current libraries did not load after the clean: {check.stderr[-2000:]}")
+    after = json.loads(check.stdout.splitlines()[-1])
+    if after["built"] or after["loaded"] != loaded:
+        fail(f"after the clean a new process built {after['built']} and loaded "
+             f"{after['loaded']}, not this process's {loaded} with no build")
+    log(f"[gc] the dry run kept the {len(loaded)} loaded libraries and listed the planted one; "
+        f"the clean removed it, and a new process loaded every library unbuilt: "
+        + json.dumps(reports))
+    return dict(reports, loaded_libraries=len(loaded))
+
+
+def phase_operator(api, params, dev, gen, signed, proof: bytes, vk_repr: int, seen: dict,
+                   gwc: bytes, gwc_code: str, K, HB) -> tuple:
+    """Phase 16, in a new directory under build/ (removed at the end): the
+    deploy (16a), the start-up from the key and SRS directories (16b) and
+    the build cache's cleaner (16c). Returns the start-up's kernel launches
+    and the summary."""
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_operator_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.time()
+        deploy = phase_deploy(work, gwc, gwc_code)
+        deploy["phase_s"] = time.time() - t0
+        t0 = time.time()
+        launches, startup = phase_startup(api, params, dev, gen, signed, proof, vk_repr, seen,
+                                          work)
+        startup["phase_s"] = time.time() - t0
+        t0 = time.time()
+        cleaner = phase_cleaner(K, HB)
+        cleaner["phase_s"] = time.time() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches, dict(deploy=deploy, startup=startup, cleaner=cleaner)
+
+
 # The path whose run counts each kernel's launches (default: the v3 main
 # path) and the counter it reads there: row 7 is the interior kernel
 # launched by the v1 driver; row 8 is every point add of the serial route.
@@ -3116,6 +3402,8 @@ def main() -> int:
     log(f"[shplonk-keccak] {len(shk)} bytes in {shk_s:.1f}s, verify_evm accepted it")
     #    the verifiers in the port's EVM
     evm = phase_verifiers(api, key_dir, vk_path, dev, {"gwc": gwc, "shplonk": shk})
+    with open(os.path.join(key_dir, "P256Verifier.code")) as f:  # phase 16's deploy
+        gwc_code = f.read()
     precompiles = _precompile_seconds(srs)
     log(f"[onchain] done ({time.time() - t9:.1f}s): " + json.dumps(dict(
         gwc_proof_s=gwc_s, gwc_bytes=len(gwc), shplonk_keccak_s=shk_s,
@@ -3163,7 +3451,16 @@ def main() -> int:
     degrees["seconds"] = time.time() - t15
     log(f"[degrees] done ({degrees['seconds']:.1f}s)")
 
-    # 16. counters and the kernels line
+    # 16. the operator's path: deploy, start-up from the key and SRS
+    #     directories in two child processes, the build cache's cleaner
+    t16 = time.time()
+    startup_launches, operator = phase_operator(api, params, dev, gen, signed, proof,
+                                                pk.vk.transcript_repr, seen, gwc, gwc_code,
+                                                K, HB)
+    operator["seconds"] = time.time() - t16
+    log(f"[operator] done ({operator['seconds']:.1f}s)")
+
+    # 17. counters and the kernels line
     log(f"[counters] launches during keygen+prove+verify: {json.dumps(launches)}; "
         f"keygen {json.dumps(after_keygen)}; one proof {json.dumps(per_proof)}; "
         f"commit batches {sizes}")
@@ -3182,10 +3479,10 @@ def main() -> int:
                "es256": es256_launches, "srs": srs_launches, "server": server_launches,
                "batch": batch_launches, "sharded": sharded.pop("launches"),
                "dp": data_parallel.pop("launches"), "deg": deg_launches,
-               "deg_serial": deg_serial}
+               "deg_serial": deg_serial, "startup": startup_launches}
     if srs_launches["montmul"] == 0:
         fail("kernel montmul was never launched on the srs path")
-    for path in ("gwc", "es256", "server", "batch", "sharded", "dp", "deg"):
+    for path in ("gwc", "es256", "server", "batch", "sharded", "dp", "deg", "startup"):
         for name in ("montmul", "ntt_stage_a", "ntt_stage_b", "msm_interior", "msm_scan",
                      "msm_combine"):
             if by_path[path][name] == 0:
@@ -3219,6 +3516,7 @@ def main() -> int:
     print(json.dumps({"sharded": sharded}), flush=True)
     print(json.dumps({"data_parallel": data_parallel}), flush=True)
     print(json.dumps({"degrees": degrees}), flush=True)
+    print(json.dumps({"operator": operator}), flush=True)
     verification.update({"evm_call_gwc": evm["gwc"]["host_paths"],
                          "es256_verify_proof": es256["verify_host_paths"],
                          **serving["verify_host_paths"]})

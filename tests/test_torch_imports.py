@@ -63,7 +63,9 @@ def test_port_has_the_slice_modules():
         "mxu.cu", "host"}
     assert {p.name for p in (PORT / "csrc" / "host").iterdir()} >= {"pairing.cpp", "hashing.cpp"}
     scripts = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    assert {"scripts/launch_multihost_torch.py", "scripts/sharded_torch_smoke.py"} <= scripts
+    assert {"scripts/launch_multihost_torch.py", "scripts/sharded_torch_smoke.py",
+            "scripts/deploy_suite_torch.py", "scripts/profile_torch_keygen.py",
+            "scripts/gc_torch_builds.py"} <= scripts
 
 
 def _port_sources():

@@ -7,9 +7,10 @@ inputs. Keys are deterministic functions of (circuit params, SRS seed).
 `proving_key` keeps one key per circuit, SRS seed and device in memory,
 built once per process under a lock, whichever thread asks first; when a
 key is not yet in memory and a `cache_dir` is given (download_keys, and
-every entry point given the path of an existing key manifest), it is
-loaded from the key file there, which is written first if it is missing
-(plonk/pk_cache.py).
+every entry point given the path of an existing key manifest), or else
+$WH2_KEY_DIR is set, it is loaded from the key file in that directory,
+which is written first if it is missing (plonk/pk_cache.py). With
+neither, the key lives in memory only.
 """
 from __future__ import annotations
 
@@ -42,10 +43,12 @@ def proving_key(params: CircuitParams | None = None, srs_seed: bytes = b"dev",
                 device=None, cache_dir: str | None = None) -> ProvingKey:
     """keygen for the ECDSA circuit at `params` (default CircuitParams,
     k=17), once per process, SRS seed and device, whatever `cache_dir`:
-    with `cache_dir`, a key not yet in memory is loaded from the key file
-    there, which is written first if it is missing."""
+    with `cache_dir`, or when it is None with $WH2_KEY_DIR (read at each
+    call) set, a key not yet in memory is loaded from the key file in that
+    directory, which is written first if it is missing."""
     params = params or CircuitParams()
     dev = resolve(device)
+    cache_dir = pk_cache.key_dir(cache_dir)
     key = (params.to_json(), srs_seed, str(dev))
     with _PK_LOCK:
         if key not in _PK_CACHE:
@@ -98,7 +101,7 @@ def _load_params(key_path: str) -> CircuitParams:
 
 def _keys(params: CircuitParams, key_path: str, device) -> ProvingKey:
     """The pk for `params`: from the directory of `key_path` when that
-    manifest exists, else in memory."""
+    manifest exists, else as `proving_key` keeps it without a directory."""
     cache_dir = (os.path.dirname(os.path.abspath(key_path))
                  if key_path and os.path.exists(key_path) else None)
     return proving_key(params, device=device, cache_dir=cache_dir)

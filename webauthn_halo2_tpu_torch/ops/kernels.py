@@ -95,6 +95,12 @@ def _so_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def library_paths() -> dict[str, Path]:
+    """Each source's library as today's sources, headers and flags name it,
+    built or not: nothing is built or loaded."""
+    return {name: _so_path(name) for name in SOURCES}
+
+
 def build_all() -> float:
     """Compile every missing library (one nvcc per source, all started
     together) and load them all. Returns the seconds spent; `BUILD_SECONDS`

@@ -156,6 +156,13 @@ def pk_file(cache_dir: str, srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list,
     return os.path.join(cache_dir, f"pk_k{srs.k}_{digest}.torch.npz")
 
 
+def key_dir(cache_dir: str | None = None) -> str | None:
+    """The directory a key is kept in: `cache_dir`, else $WH2_KEY_DIR (read
+    at each call), else None, for a key kept in memory only. (The JAX
+    package's default is keys/; the port writes no file unless asked.)"""
+    return cache_dir or os.environ.get("WH2_KEY_DIR") or None
+
+
 def keygen_cached(srs: SRS, cs: CS.ConstraintSystem, fixed_cols: list,
                   copies: list, cache_dir: str, device=None) -> ProvingKey:
     """keygen with a write-once file in `cache_dir` (the download_keys

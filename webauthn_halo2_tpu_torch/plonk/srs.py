@@ -362,8 +362,12 @@ _SRS_LOCK = threading.Lock()
 
 
 def srs_paths(k: int, seed: bytes = b"dev", cache_dir: str | None = None) -> tuple[str, str]:
-    """(the JAX-format file, the port-format file) `get_srs` looks for."""
+    """(the JAX-format file, the port-format file) `get_srs` looks for: both
+    in `cache_dir`; when it is None, both in $WH2_SRS_DIR (read at each
+    call) if that is set, else the committed files' directory and
+    build/srs/."""
     name = f"srs_bn254_k{k}_{seed.hex()}"
+    cache_dir = cache_dir or os.environ.get("WH2_SRS_DIR")
     jax_dir = cache_dir or os.path.abspath(DEFAULT_CACHE_DIR)
     port_dir = cache_dir or os.path.abspath(DEFAULT_GEN_DIR)
     return (os.path.join(jax_dir, f"{name}.npz"),
@@ -373,9 +377,11 @@ def srs_paths(k: int, seed: bytes = b"dev", cache_dir: str | None = None) -> tup
 def get_srs(k: int, seed: bytes = b"dev", cache_dir: str | None = None,
             device=None) -> SRS:
     """The SRS for degree k on `device`, kept in memory per device: the
-    committed JAX-format file if there is one, else a file of the port's
-    format, else generated on the device and saved in the port's format
-    (in `cache_dir`, or build/srs/ when it is None)."""
+    JAX-format file if there is one, else a file of the port's format, else
+    generated on the device and saved in the port's format. Both files are
+    looked for, and a generated SRS saved, where `srs_paths` says: in
+    `cache_dir`, else in $WH2_SRS_DIR, else the committed files' directory
+    for the JAX format and build/srs/ for the port's."""
     dev = resolve(device)
     key = (k, seed, str(dev))
     with _SRS_LOCK:

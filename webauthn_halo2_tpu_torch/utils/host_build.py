@@ -65,6 +65,13 @@ def so_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def library_paths() -> dict[str, Path]:
+    """Each source's library as today's sources, flags and compiler name it,
+    built or not: the compiler is asked for its version, nothing is built
+    or loaded."""
+    return {name: so_path(name) for name in SOURCES}
+
+
 def _build(name: str) -> Path:
     """The library of `name`, compiled first if no process has yet."""
     so = so_path(name)
