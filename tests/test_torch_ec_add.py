@@ -66,6 +66,9 @@ def test_add_unsafe_fast_takes_the_serial_pippengers_shapes(shape):
 def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     a, b = _operands(8, 10)
     P, Q = E.from_affine_ints(CURVE, a), E.from_affine_ints(CURVE, b)
+    # the counter is the process's: a test file run earlier in this worker
+    # (tests/test_torch_devices.py, on its fake cards) may have raised it
+    E.LAUNCHES["ec_add_unsafe"] = 0
     with pytest.raises(ValueError, match="CUDA"):
         E.add_unsafe_cuda(CURVE, P, Q)
     E.add_unsafe_fast(CURVE, P, Q)
